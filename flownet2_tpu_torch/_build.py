@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into one
-shared library with a plain C interface, on first use, into
+The sources are compiled with ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, on first use, into
 ``build/flownet2_tpu_torch/`` at the repository root; Python loads it with
 ``ctypes``. No PyTorch header is included, so a build takes seconds.
 The library's file name carries a hash of the sources and flags, so an
@@ -26,11 +27,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "flownet2_tpu_torch"
-SOURCES = ("warp.cu", "correlation.cu", "status.cu")
+SOURCES = ("warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "status.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Must match DtypeCode in csrc/common.cuh.
@@ -40,8 +41,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # image, flow, out, n, c, h, w, image_dtype, flow_dtype, fill, stream
     "fn2_flow_warp": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # image, flow, grad, grad_image (f32 or null), grad_flow (or null), n, c, h, w,
+    # image_dtype, flow_dtype, stream
+    "fn2_flow_warp_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # f1, f2, out, n, h, w, c, max_displacement, stride2, dtype, stream
     "fn2_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement,
+    # stride2, dtype, stream
+    "fn2_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -75,23 +82,41 @@ def _digest() -> str:
 @cache
 def build() -> BuildInfo:
     """Compile the kernels unless a library built from the same sources exists."""
-    lib = BUILD_DIR / f"libflownet2_kernels_{_digest()}.so"
+    digest = _digest()
+    lib = BUILD_DIR / f"libflownet2_kernels_{digest}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(lib, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # write under a private name and rename, so concurrent builds never
+    # write under private names and rename, so concurrent builds never
     # load a half-written library
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    tmp = lib.with_name(f"{lib.name}.{tag}")
+    # nvcc tells inputs by their suffix: the objects must end in .o
+    objs = [BUILD_DIR / f"{Path(s).stem}_{digest}.{tag}.o" for s in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildInfo(lib, seconds, log)

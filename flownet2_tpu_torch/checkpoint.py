@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameters to a PyTorch ``state_dict``.
+"""Weight bridge: the JAX package's parameters to a PyTorch ``state_dict`` and back.
 
 The JAX package stores weights as a flat ``.npz`` with ``/``-joined keys
 (flownet2_tpu/checkpoint.py), e.g. ``flownetc/conv1/w`` and
@@ -11,6 +11,8 @@ The JAX package stores weights as a flat ``.npz`` with ``/``-joined keys
 
 Both are ``w.transpose(3, 2, 0, 1)``, the inverse of the caffemodel
 importer's move (flownet2_tpu/models/import_caffe.py:222-223).
+:func:`params_from_state_dict` moves them back, and :func:`save_params`
+writes the flat ``.npz`` that ``flownet2_tpu.checkpoint.load_params`` reads.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from flownet2_tpu_torch.models import NETS
 
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
+_JAX_LEAVES = {v: k for k, v in _LEAF_NAMES.items()}
 
 
 def flatten_params(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -56,8 +59,30 @@ def state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
             if a.ndim != 4:
                 raise ValueError(f"{key}: expected a 4-D conv weight, got shape {a.shape}")
             a = a.transpose(3, 2, 0, 1)
-        sd[".".join(path + [_LEAF_NAMES[leaf]])] = torch.from_numpy(np.ascontiguousarray(a))
+        # a copy: the tensor must not share memory with the caller's arrays,
+        # or training the net would write into them
+        sd[".".join(path + [_LEAF_NAMES[leaf]])] = torch.from_numpy(np.array(a, order="C", copy=True))
     return sd
+
+
+def params_from_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A net's ``state_dict`` -> flat ``/``-keyed float32 numpy parameters in
+    the JAX layout: the inverse of :func:`state_dict_from_params`."""
+    params = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf not in _JAX_LEAVES:
+            raise ValueError(f"unexpected state_dict entry {key!r}: leaves must be 'weight' or 'bias'")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0)
+        params["/".join(path + [_JAX_LEAVES[leaf]])] = np.ascontiguousarray(a)
+    return params
+
+
+def save_params(path: str | os.PathLike, params: dict) -> None:
+    """Write JAX-layout parameters (flat or nested) as a flat ``.npz``."""
+    np.savez(path, **flatten_params(params))
 
 
 def load_into(net: nn.Module, params: dict) -> nn.Module:

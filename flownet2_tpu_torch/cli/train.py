@@ -1,0 +1,151 @@
+"""train on PyTorch: the ``caffe train`` brew command (tools/caffe.cpp:154-226).
+
+Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
+
+    python -m flownet2_tpu_torch.cli.train --model flownetc --dataset flyingchairs
+        --data-root DIR --no-augment [--loss KEY] [--schedule S_long] [--base-lr LR]
+        [--solver adam] [--batch 8] [--crop 320x448] [--iter-size 1] [--max-iter N]
+        [--weights W.npz] [--snapshot DIR/iter_NNNNNNN] [--snapshot-dir DIR]
+        [--snapshot-interval N] [--display N] [--seed S] [--gpu N | --device cpu]
+
+- ``--loss`` picks an objective of ``train.objectives.LOSSES`` (default: the
+  model's own); the cascade-stage losses (flownet2-s1, -s2, -fusion,
+  -c-stage, -sd-stage) train one sub-net of ``--model flownet2``;
+- ``--weights`` copies the layers whose names and shapes match from a flat
+  ``.npz``; ``--snapshot`` resumes weights, optimizer state and iteration;
+- ``--gpu N`` trains on ``cuda:N``; ``--device`` names a device instead
+  (``cpu`` for tests). Without a card and without ``--device`` the CLI
+  exits with an error: it never falls back to the CPU.
+
+Not yet in the port, each refused with a message: augmentation (a run
+without ``--no-augment``), more than one card (``--gpu all`` or a list),
+``--device-cache``, ``--recompute-mean``, ``--write-augmented`` and
+``--steps-per-dispatch``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", default="flownets", help="flownets|flownetc|flownet2-sd|flownet2")
+    p.add_argument("--loss", default=None, help="objective (train.objectives.LOSSES); default: the model's")
+    p.add_argument("--dataset", default="flyingchairs")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--schedule", default="S_long", help="S_long|S_short|S_fine")
+    p.add_argument("--base-lr", type=float, default=None, help="override the schedule's base_lr")
+    p.add_argument("--solver", default="adam", help="sgd|nesterov|adagrad|rmsprop|adadelta|adam")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--crop", default="320x448", help="HxW training crop")
+    p.add_argument("--iter-size", type=int, default=1, help="micro-batches accumulated per iteration")
+    p.add_argument("--max-iter", type=int, default=0, help="0: the schedule's")
+    p.add_argument("--weights", default=None, help="finetune from a flat .npz")
+    p.add_argument("--snapshot", default=None, help="resume from a snapshot (DIR/iter_NNNNNNN)")
+    p.add_argument("--snapshot-dir", default="snapshots")
+    p.add_argument("--snapshot-interval", type=int, default=50000)
+    p.add_argument("--display", type=int, default=100)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-augment", action="store_true")
+    p.add_argument("--gpu", default="0", help="CUDA device index (one card)")
+    p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
+    # flags of the JAX CLI whose pieces are not ported yet: refused when set
+    p.add_argument("--device-cache", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--recompute-mean", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--write-augmented", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--steps-per-dispatch", type=int, default=0, help=argparse.SUPPRESS)
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if not args.no_augment:
+        raise SystemExit("augmentation is not ported to PyTorch yet; pass --no-augment")
+    for flag, value in (("--device-cache", args.device_cache), ("--recompute-mean", args.recompute_mean),
+                        ("--write-augmented", args.write_augmented),
+                        ("--steps-per-dispatch", args.steps_per_dispatch)):
+        if value:
+            raise SystemExit(f"{flag} is not ported to PyTorch yet")
+    if args.device is None and not args.gpu.isdigit():
+        raise SystemExit(f"--gpu {args.gpu}: the PyTorch port trains on one card; pass one index")
+
+
+def _device(args) -> str:
+    if args.device is not None:
+        return args.device
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device available; pass --device cpu to run on the CPU")
+    if int(args.gpu) >= torch.cuda.device_count():
+        raise SystemExit(f"device {args.gpu} not available ({torch.cuda.device_count()} present)")
+    return f"cuda:{args.gpu}"
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+
+    from flownet2_tpu_torch.checkpoint import init_params, load_into, load_params
+    from flownet2_tpu_torch.data import BatchLoader, open_dataset
+    from flownet2_tpu_torch.models import NETS, FlowNet2
+    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import LOSSES, STAGE_LOSS_KEY, trainable_module
+
+    import torch
+
+    if args.model not in NETS:
+        raise SystemExit(f"unknown model {args.model!r}; choose from {sorted(NETS)}")
+    loss_key = args.loss or args.model
+    if loss_key not in LOSSES:
+        raise SystemExit(f"no training objective {loss_key!r}; choose from {sorted(LOSSES)}")
+    stage_loss = loss_key in STAGE_LOSS_KEY.values()
+    if stage_loss != (NETS[args.model] is FlowNet2) or (not stage_loss and loss_key != args.model):
+        raise SystemExit(f"objective {loss_key!r} does not train model {args.model!r}: the cascade-stage "
+                         "objectives take --model flownet2, the others their own model")
+    crop_h, crop_w = (int(v) for v in args.crop.split("x"))
+    device = _device(args)
+
+    sched = dict(FLOWNET_SCHEDULES[args.schedule])
+    max_iter = args.max_iter or sched["max_iter"]
+    config = SolverConfig(
+        solver_type=args.solver,
+        lr_policy=sched["policy"],
+        base_lr=sched["base_lr"] if args.base_lr is None else args.base_lr,
+        gamma=sched.get("gamma", 0.1),
+        stepvalues=sched.get("stepvalues", ()),
+        max_iter=max_iter,
+        momentum=0.9,
+        momentum2=0.999,
+        iter_size=args.iter_size,
+    )
+    with torch.device("meta"):
+        net = NETS[args.model]()
+    load_into(net, init_params(args.model, seed=args.seed))
+    solver = Solver(
+        config, LOSSES[loss_key], net, device=device, trainable=trainable_module(net, loss_key),
+        snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval, display=args.display,
+    )
+    solver.install_signal_handlers()
+    if args.weights:
+        solver.copy_weights_from(load_params(args.weights))
+    if args.snapshot:
+        solver.restore(args.snapshot)
+
+    dataset = open_dataset(args.dataset, args.data_root)
+    loader = BatchLoader(dataset, args.batch * args.iter_size, crop=(crop_h, crop_w), shuffle_seed=args.seed)
+    batch_hook = None
+    if args.iter_size > 1:
+        def batch_hook(batch):  # the leading micro-batch axis make_train_step takes
+            return {k: v.reshape(args.iter_size, args.batch, *v.shape[1:]) for k, v in batch.items()}
+
+    print(f"Training {args.model} ({loss_key}) on {args.dataset} ({len(dataset)} samples) on {device}, "
+          f"{max_iter} iterations, crop {crop_h}x{crop_w}, batch {args.batch} x iter_size {args.iter_size}")
+    solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook)
+    print(f"Optimization done, final smoothed loss {solver.smoothed_loss:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,12 @@
-"""The operators of the FlowNet2 inference path, on NCHW tensors.
+"""The operators of the FlowNet2 paths, on NCHW tensors.
 
 - ``activations``  — leaky ReLU.
-- ``channel_norm`` — per-pixel L2 norm over channels (forward).
+- ``channel_norm`` — per-pixel L2 norm over channels, stabilized backward.
 - ``resample``     — linear resize with the reference's offsets, as two matmuls.
-- ``warp``         — FlowWarp forward: CUDA kernel + plain PyTorch version.
-- ``correlation``  — cost volume: CUDA kernel + plain PyTorch version.
+- ``downsample``   — the NaN-aware area downsample of ground truth.
+- ``losses``       — L1/EPE, Lpq and the multi-scale loss.
+- ``warp``         — FlowWarp: CUDA kernels (forward, backward) + plain PyTorch version.
+- ``correlation``  — cost volume: CUDA kernels (forward, backward) + plain PyTorch version.
 
 Convolutions and deconvolutions are ``F.conv2d`` / ``F.conv_transpose2d``
 (through ``nn.Conv2d`` / ``nn.ConvTranspose2d`` in the models).

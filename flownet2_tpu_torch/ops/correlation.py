@@ -14,10 +14,12 @@ Counterpart of flownet2_tpu/ops/correlation.py (``correlation`` and
   the mean of |f1 - f2| over the same window.
 
 Layout: f1, f2 (N, C, H, W) -> (N, gw**2, out_h, out_w). A CUDA tensor goes
-to the hand-written kernel (csrc/correlation.cu), which covers the FlowNet
-configuration (multiply, k=1, stride1=1, pad == max_displacement) and
-raises NotImplementedError otherwise; a CPU tensor goes to
-:func:`correlation_plain`, which covers every configuration.
+to an autograd Function over the hand-written kernels (forward
+csrc/correlation.cu, backward csrc/correlation_bwd.cu), which cover the
+FlowNet configuration (multiply, k=1, stride1=1, pad == max_displacement)
+and raise NotImplementedError otherwise; a CPU tensor goes to
+:func:`correlation_plain`, which covers every configuration and which
+autograd differentiates.
 """
 
 from __future__ import annotations
@@ -54,17 +56,38 @@ def correlation(
                 "the CUDA correlation covers multiply mode with kernel_size=1, "
                 "stride1=1 and pad == max_displacement only"
             )
-        # the kernel reads channels-last; a channels_last input is not copied
-        return correlation_cuda(
-            f1.permute(0, 2, 3, 1).contiguous(), f2.permute(0, 2, 3, 1).contiguous(),
-            max_displacement=max_displacement, stride2=stride2,
-        )
+        return _CorrelationCuda.apply(f1, f2, max_displacement, stride2)
     if f1.device.type == "cpu" and f2.device.type == "cpu":
         return correlation_plain(
             f1, f2, max_displacement=max_displacement, kernel_size=kernel_size,
             stride1=stride1, stride2=stride2, pad=pad, multiply=multiply,
         )
     raise ValueError(f"correlation: unsupported devices {f1.device} / {f2.device}")
+
+
+class _CorrelationCuda(torch.autograd.Function):
+    """The CUDA kernels under autograd. The forward's channels-last copies
+    are what the backward kernel reads, so they are saved, not made again."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride2):
+        # the kernels read channels-last; a channels_last input is not copied
+        f1c, f2c = f1.permute(0, 2, 3, 1).contiguous(), f2.permute(0, 2, 3, 1).contiguous()
+        ctx.save_for_backward(f1c, f2c)
+        ctx.corr = (max_displacement, stride2)
+        return correlation_cuda(f1c, f2c, max_displacement=max_displacement, stride2=stride2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        f1c, f2c = ctx.saved_tensors
+        md, stride2 = ctx.corr
+        need_f1, need_f2, _, _ = ctx.needs_input_grad
+        df1, df2 = correlation_backward_cuda(
+            f1c, f2c, grad.to(f1c.dtype).contiguous(), max_displacement=md, stride2=stride2,
+            need_f1=need_f1, need_f2=need_f2,
+        )
+        # back to the nets' (N, C, H, W), as views of the channels-last results
+        return tuple(None if d is None else d.permute(0, 3, 1, 2) for d in (df1, df2)) + (None, None)
 
 
 def correlation_plain(
@@ -146,3 +169,66 @@ def correlation_cuda(
 
 
 correlation_cuda.launches = 0  # kernel launches since the last reset
+
+
+def correlation_backward_plain(
+    f1: torch.Tensor, f2: torch.Tensor, grad: torch.Tensor, **kwargs
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch VJP: autograd through :func:`correlation_plain` with the
+    same keyword arguments. f1, f2 (N, C, H, W), grad the cotangent of the
+    output; returns (df1, df2) (N, C, H, W) in the inputs' dtype."""
+    with torch.enable_grad():
+        a = f1.detach().requires_grad_(True)
+        b = f2.detach().requires_grad_(True)
+        out = correlation_plain(a, b, **kwargs)
+        df1, df2 = torch.autograd.grad(out, (a, b), grad.to(out.dtype))
+    return df1, df2
+
+
+def correlation_backward_cuda(
+    f1: torch.Tensor, f2: torch.Tensor, grad: torch.Tensor, *, max_displacement: int, stride2: int,
+    need_f1: bool = True, need_f2: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Launch the backward kernels (csrc/correlation_bwd.cu) on the current stream.
+
+    FlowNet configuration only. Takes f1, f2 (N, H, W, C) channels-last and
+    grad (N, gw**2, H, W), contiguous, all float32 or all bfloat16, on one
+    CUDA device; returns (df1, df2) (N, H, W, C) in their dtype, None for a
+    gradient not asked for. Raises on anything else, and on more than 12288
+    displacements (a column's g values must fit shared memory).
+    """
+    if f1.device.type != "cuda" or f2.device != f1.device or grad.device != f1.device:
+        raise ValueError(f"correlation_backward_cuda needs CUDA tensors on one device, got "
+                         f"{f1.device} / {f2.device} / {grad.device}")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(f"need two equal (N, H, W, C) inputs, got {tuple(f1.shape)} and {tuple(f2.shape)}")
+    if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype or grad.dtype != f1.dtype:
+        raise TypeError(f"correlation_backward_cuda: dtypes {f1.dtype} / {f2.dtype} / {grad.dtype}; "
+                        "need all float32 or all bfloat16")
+    if not (f1.is_contiguous() and f2.is_contiguous() and grad.is_contiguous()):
+        raise ValueError("correlation_backward_cuda: inputs must be contiguous")
+    if max_displacement < 0 or stride2 < 1:
+        raise ValueError(f"bad max_displacement={max_displacement} / stride2={stride2}")
+    n, h, w, c = f1.shape
+    if n > 65535 or h > 65535:
+        raise ValueError(f"correlation_backward_cuda: N={n} and H={h} must each be <= 65535 (grid limits)")
+    gw = 2 * (max_displacement // stride2) + 1
+    if tuple(grad.shape) != (n, gw * gw, h, w):
+        raise ValueError(f"grad shape {tuple(grad.shape)}, expected {(n, gw * gw, h, w)}")
+    df1 = torch.empty_like(f1) if need_f1 else None
+    df2 = torch.empty_like(f2) if need_f2 else None
+    if not (need_f1 or need_f2) or f1.numel() == 0:
+        return df1, df2
+    lib = _build.library()
+    status = lib.fn2_correlation_backward(
+        f1.data_ptr(), f2.data_ptr(), grad.data_ptr(),
+        df1.data_ptr() if need_f1 else None, df2.data_ptr() if need_f2 else None,
+        n, h, w, c, max_displacement, stride2, _build.DTYPE_CODES[f1.dtype],
+        torch.cuda.current_stream(f1.device).cuda_stream,
+    )
+    _build.check_status(status, "correlation_backward")
+    correlation_backward_cuda.launches += 1
+    return df1, df2
+
+
+correlation_backward_cuda.launches = 0  # kernel launches since the last reset

@@ -61,7 +61,10 @@ def _axis_weights(in_size: int, out_size: int, f: float, f_other: float, antiali
 def _axis_weights_on(
     in_size: int, out_size: int, f: float, f_other: float, antialias: bool, device: torch.device
 ) -> torch.Tensor:
-    return torch.from_numpy(_axis_weights(in_size, out_size, f, f_other, antialias)).to(device)
+    # a normal tensor even when the first call runs under inference_mode:
+    # the cache outlives that call, and autograd refuses inference tensors
+    with torch.inference_mode(False):
+        return torch.from_numpy(_axis_weights(in_size, out_size, f, f_other, antialias)).to(device)
 
 
 def resample(x: torch.Tensor, out_height: int, out_width: int, *, antialias: bool = True) -> torch.Tensor:

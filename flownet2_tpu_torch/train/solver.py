@@ -1,0 +1,231 @@
+"""The Solver: the train and snapshot loop (flownet2_tpu/train/solver.py;
+reference src/caffe/solver.cpp).
+
+- ``make_train_step``: one iteration, with ``iter_size`` accumulation
+  (solver.cpp:222-225): gradients summed over the micro-batches and divided
+  by ``iter_size``, the loss averaged;
+- ``Solver.step`` keeps the loss on the device and synchronizes once every
+  ``sync_bound`` steps, so the host never runs unboundedly ahead;
+- ``Solver.solve``: display of the loss smoothed over the last
+  ``AVERAGE_LOSS`` iterations (solver.cpp's ``average_loss``), snapshots
+  every ``snapshot_interval``, and the SIGINT/SIGHUP actions (stop,
+  snapshot) checked once per iteration;
+- ``snapshot``/``restore``: the weights as the JAX package's flat ``.npz``
+  (``iter_NNNNNNN.npz``, readable by ``flownet2_tpu.checkpoint.load_params``)
+  and, beside it, ``iter_NNNNNNN.pt`` with the optimizer state, the
+  iteration and any registered host-side state.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import time
+from collections import deque
+from typing import Any, Callable, Iterator, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from flownet2_tpu_torch.checkpoint import (
+    load_params,
+    params_from_state_dict,
+    save_params,
+    state_dict_from_params,
+)
+from flownet2_tpu_torch.train.solvers import CaffeSolver, SolverConfig, make_solver
+
+AVERAGE_LOSS = 100  # iterations the displayed loss is averaged over
+
+
+def make_train_step(
+    loss_fn: Callable[[nn.Module, dict], tuple[torch.Tensor, dict]],
+    optimizer: CaffeSolver,
+    *,
+    iter_size: int = 1,
+) -> Callable[[nn.Module, dict], tuple[torch.Tensor, dict]]:
+    """``step(net, batch) -> (loss, aux)``, both detached and on the device.
+
+    With ``iter_size`` > 1 every tensor of ``batch`` has a leading
+    micro-batch axis of that size."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(net, batch):
+        optimizer.zero_grad(set_to_none=True)
+        if iter_size == 1:
+            loss, aux = loss_fn(net, batch)
+            loss.backward()
+        else:
+            losses, auxes = [], []
+            for i in range(iter_size):
+                micro_loss, micro_aux = loss_fn(net, {k: v[i] for k, v in batch.items()})
+                micro_loss.backward()
+                losses.append(micro_loss.detach())
+                auxes.append(micro_aux)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(iter_size)
+            loss = torch.stack(losses).mean()
+            aux = {k: torch.stack([a[k].detach() for a in auxes]).mean() for k in auxes[0]}
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    return step
+
+
+class Solver:
+    """Owns the net, its optimizer and the iteration, and drives the loop
+    (reference Solver::Solve).
+
+    ``net`` is moved to ``device``; the optimizer updates the parameters of
+    ``trainable`` (a sub-module of ``net``; default the whole net), and every
+    other parameter of ``net`` is frozen (``requires_grad`` off)."""
+
+    def __init__(
+        self,
+        config: SolverConfig,
+        loss_fn: Callable,
+        net: nn.Module,
+        *,
+        device,
+        trainable: Optional[nn.Module] = None,
+        snapshot_dir: Optional[str] = None,
+        snapshot_interval: int = 0,
+        display: int = 100,
+    ):
+        self.config = config
+        self.device = torch.device(device)
+        self.net = net.to(self.device)
+        params = list((net if trainable is None else trainable).parameters())
+        train_ids = {id(p) for p in params}
+        for p in net.parameters():
+            p.requires_grad_(id(p) in train_ids)
+        self.optimizer = make_solver(config, params)
+        self.step_fn = make_train_step(loss_fn, self.optimizer, iter_size=config.iter_size)
+        self.iteration = 0
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_interval = snapshot_interval
+        self.display = display
+        self._loss_window: deque = deque(maxlen=AVERAGE_LOSS)
+        self._requested_action = None
+        # one host sync per sync_bound steps bounds how far the host runs ahead
+        self.sync_bound = 64
+        self._steps_since_sync = 0
+        self.history: list[tuple[int, float]] = []
+        # host-side state saved with snapshots: objects with
+        # state_dict() / load_state_dict() of numpy arrays
+        self._extras: dict[str, Any] = {}
+
+    def register_extra(self, name: str, obj: Any) -> None:
+        """Register host-side state to persist alongside snapshots."""
+        self._extras[name] = obj
+
+    def install_signal_handlers(self) -> None:
+        """Reference SignalHandler defaults: SIGINT stops, SIGHUP snapshots."""
+
+        def handler_factory(action):
+            def handler(signum, frame):
+                self._requested_action = action
+
+            return handler
+
+        signal.signal(signal.SIGINT, handler_factory("stop"))
+        if hasattr(signal, "SIGHUP"):
+            signal.signal(signal.SIGHUP, handler_factory("snapshot"))
+
+    @property
+    def smoothed_loss(self) -> float:
+        """Mean loss over the last ``AVERAGE_LOSS`` steps (a host sync)."""
+        if not self._loss_window:
+            return float("nan")
+        return float(torch.stack(list(self._loss_window)).mean())
+
+    def step(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """One training iteration on a batch of arrays or tensors. Returns the
+        loss as a device tensor: nothing here waits for the device, except
+        one sync every ``sync_bound`` steps."""
+        batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        loss, aux = self.step_fn(self.net, batch)
+        self.iteration += 1
+        self._loss_window.append(loss)
+        self._steps_since_sync += 1
+        if self._steps_since_sync >= self.sync_bound:
+            self._steps_since_sync = 0
+            float(loss)
+        return loss, aux
+
+    def solve(
+        self,
+        data_iter: Iterator,
+        *,
+        max_iter: Optional[int] = None,
+        log: Callable[[str], None] = print,
+        batch_hook: Optional[Callable[[Any], Any]] = None,
+    ) -> None:
+        """Train until ``max_iter``, honouring the display and snapshot
+        intervals and the signal actions. ``batch_hook(batch) -> batch`` runs
+        on each batch just before its step."""
+        max_iter = self.config.max_iter if max_iter is None else max_iter
+        t0 = time.time()
+        while self.iteration < max_iter:
+            batch = next(data_iter)
+            if batch_hook is not None:
+                batch = batch_hook(batch)
+            self.step(batch)
+            it = self.iteration
+            if self.display and it % self.display == 0:
+                rate = self.display / max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                log(f"Iteration {it}, loss = {self.smoothed_loss:.6f} ({rate:.2f} iter/s)")
+                self.history.append((it, self.smoothed_loss))
+            if self.snapshot_interval and self.snapshot_dir and it % self.snapshot_interval == 0:
+                self.snapshot()
+            if self._requested_action == "stop":
+                log(f"Stopping early at iteration {it} (signal).")
+                break
+            if self._requested_action == "snapshot":
+                self.snapshot()
+                self._requested_action = None
+        if self.snapshot_dir:
+            self.snapshot()
+
+    # -- checkpointing (reference Snapshot/Restore, solver.cpp:412-483)
+    def snapshot(self) -> str:
+        """Write ``iter_NNNNNNN.npz`` and ``.pt``; return their common prefix."""
+        os.makedirs(self.snapshot_dir, exist_ok=True)
+        prefix = os.path.abspath(os.path.join(self.snapshot_dir, f"iter_{self.iteration:07d}"))
+        save_params(prefix + ".npz", params_from_state_dict(self.net.state_dict()))
+        extras = {
+            name: {k: torch.as_tensor(np.asarray(v)) for k, v in obj.state_dict().items()}
+            for name, obj in self._extras.items()
+        }
+        torch.save(
+            {"iteration": self.iteration, "optimizer": self.optimizer.state_dict(), "extras": extras},
+            prefix + ".pt",
+        )
+        return prefix
+
+    def restore(self, path: str) -> None:
+        """Resume from a snapshot, named by its prefix or either file."""
+        prefix = path[: -len(os.path.splitext(path)[1])] if path.endswith((".npz", ".pt")) else path
+        self.net.load_state_dict(state_dict_from_params(load_params(prefix + ".npz")), strict=True)
+        state = torch.load(prefix + ".pt", map_location=self.device, weights_only=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.iteration = int(state["iteration"])
+        for name, obj in self._extras.items():
+            if state["extras"].get(name):
+                obj.load_state_dict({k: v.cpu().numpy() for k, v in state["extras"][name].items()})
+
+    def copy_weights_from(self, params: dict, strict: bool = False) -> None:
+        """Finetuning as ``caffe train -weights``: copy the JAX-layout
+        ``params`` whose names AND shapes match; leave the rest
+        (net.cpp:752-804). ``strict`` raises on any mismatch instead."""
+        src = state_dict_from_params(params)
+        with torch.no_grad():
+            for key, dst in self.net.state_dict().items():
+                if key in src and src[key].shape == dst.shape:
+                    dst.copy_(src[key])
+                elif strict:
+                    got = tuple(src[key].shape) if key in src else "missing"
+                    raise ValueError(f"parameter {key}: {got} vs {tuple(dst.shape)}")

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Where the device time of one FlowNet2 forward goes, on one CUDA card.
+"""Where the device time of one FlowNet2 forward, or of one train step,
+goes on one CUDA card.
 
 Runs the port's ``FlowRunner.run`` on card tensors (seeded random weights,
 seeded uniform images) under ``torch.profiler`` for a few forwards after a
-warm-up, per dtype, and prints:
+warm-up, per dtype; with ``--train``, ``Solver.step`` (Adam) of the
+FlowNetC-stage loss and of the joint FlowNet2 loss, float32, instead. It
+prints:
 
 - wall time per batch (CUDA events around the profiled forwards, so it
   includes the profiler's own host cost), device busy time per batch (the
@@ -17,6 +20,7 @@ warm-up, per dtype, and prints:
     python3 scripts/profile_slice.py                      # 448x320 b8, f32 and bf16
     python3 scripts/profile_slice.py --out build/profile  # also write the full tables
     python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4   # Sintel size
+    python3 scripts/profile_slice.py --train              # train steps, 448x320 b8
 
 TF32 is off, as in chip_smoke.py. Imports neither jax nor the JAX package.
 """
@@ -42,13 +46,16 @@ SEED, WARMUP, STEPS, ROW_LIMIT = 0, 3, 3, 25
 OP_PARTS = {
     "cuDNN conv (incl. its layout transposes)": ("aten::cudnn_convolution",),
     "cuDNN deconv": ("aten::cudnn_convolution_transpose",),
+    "cuDNN conv and deconv backward": ("aten::convolution_backward",),
     "bias add_ (separate kernel)": ("aten::add_",),
     "leaky ReLU (where + ge)": ("aten::where", "aten::ge"),
 }
 # part of the slice -> substring of the device kernels' names
 KERNEL_PARTS = {
     "correlation kernel": "correlation_kernel",
+    "correlation backward kernel": "correlation_backward_kernel",
     "flow_warp kernel": "flow_warp_kernel",
+    "flow_warp backward kernel": "flow_warp_backward_kernel",
     "cuDNN NCHW->NHWC transposes": "nchwToNhwc",
     "cuDNN NHWC->NCHW transposes": "nhwcToNchw",
 }
@@ -86,39 +93,66 @@ def parts_us(prof) -> dict[str, float]:
     return out
 
 
-def profile_dtype(args, dtype: str, dev: torch.device) -> str:
-    from flownet2_tpu_torch.checkpoint import init_params
-    from flownet2_tpu_torch.inference import FlowRunner
-
-    runner = FlowRunner("flownet2", init_params("flownet2", seed=SEED), device=dev, dtype=dtype)
-    rng = np.random.default_rng(SEED)
-    i0, i1 = (
-        torch.as_tensor(rng.uniform(0, 255, (args.batch, args.height, args.width, 3)).astype(np.float32),
-                        device=dev)
-        for _ in range(2)
-    )
+def profile_run(args, label: str, run) -> str:
+    """Profile ``STEPS`` calls of ``run`` after ``WARMUP``; the report as text."""
     for _ in range(WARMUP):
-        runner.run(i0, i1)
+        run()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(STEPS):
-            runner.run(i0, i1)
+            run()
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end) / STEPS
     busy = busy_us(prof) / 1e3 / STEPS
-    lines = [f"== {dtype}: wall {wall:.3f} ms/batch, device busy {busy:.3f} ms/batch, "
+    lines = [f"== {label}: wall {wall:.3f} ms/call, device busy {busy:.3f} ms/call, "
              f"idle share {1 - busy / wall:.3f}"]
     for part, us in parts_us(prof).items():
-        lines.append(f"   {part}: {us / 1e3 / STEPS:.3f} ms/batch, {us / 1e3 / STEPS / busy:.1%} of busy")
+        lines.append(f"   {part}: {us / 1e3 / STEPS:.3f} ms/call, {us / 1e3 / STEPS / busy:.1%} of busy")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=ROW_LIMIT)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, f"profile_{dtype}.txt"), "w") as f:
+        with open(os.path.join(args.out, f"profile_{label.replace(' ', '_')}.txt"), "w") as f:
             f.write("\n".join(lines) + "\n" + prof.key_averages().table(sort_by="self_device_time_total"))
     return "\n".join(lines) + "\n" + table
+
+
+def _images(args, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    rng = np.random.default_rng(SEED)
+    return tuple(
+        torch.as_tensor(rng.uniform(0, 255, (args.batch, args.height, args.width, 3)).astype(np.float32),
+                        device=dev)
+        for _ in range(2)
+    )
+
+
+def profile_dtype(args, dtype: str, dev: torch.device) -> str:
+    from flownet2_tpu_torch.checkpoint import init_params
+    from flownet2_tpu_torch.inference import FlowRunner
+
+    runner = FlowRunner("flownet2", init_params("flownet2", seed=SEED), device=dev, dtype=dtype)
+    i0, i1 = _images(args, dev)
+    return profile_run(args, dtype, lambda: runner.run(i0, i1))
+
+
+def profile_train(args, objective: str, dev: torch.device) -> str:
+    """Adam ``Solver.step``, float32: FlowNetC's loss or the joint FlowNet2 loss."""
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.models import NETS
+    from flownet2_tpu_torch.train import Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import flownet2_loss, flownet_c_loss
+
+    model, loss_fn = {"flownetc": ("flownetc", flownet_c_loss), "joint": ("flownet2", flownet2_loss)}[objective]
+    with torch.device("meta"):
+        net = NETS[model]()
+    solver = Solver(SolverConfig(solver_type="adam"), loss_fn, load_into(net, init_params(model, seed=SEED)),
+                    device=dev)
+    i0, i1 = _images(args, dev)
+    flow = torch.randn(args.batch, args.height, args.width, 2, generator=torch.Generator().manual_seed(SEED))
+    batch = {"img0": i0, "img1": i1, "flow": (4 * flow).to(dev)}
+    return profile_run(args, f"train {objective} f32", lambda: solver.step(batch))
 
 
 def main(argv=None) -> int:
@@ -128,6 +162,7 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"], choices=["float32", "bfloat16"])
     p.add_argument("--out", default=None, help="directory for the full key_averages tables")
+    p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -139,8 +174,13 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}, {smi}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for dtype in args.dtypes:
-        print(profile_dtype(args, dtype, torch.device("cuda", 0)))
+    dev = torch.device("cuda", 0)
+    if args.train:
+        for objective in ("flownetc", "joint"):
+            print(profile_train(args, objective, dev))
+    else:
+        for dtype in args.dtypes:
+            print(profile_dtype(args, dtype, dev))
     return 0
 
 

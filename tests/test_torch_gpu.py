@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+train steps on the card against the same steps on the CPU.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture for the card and skips
 where there is none. This file imports no jax, so on a machine without jax
@@ -11,10 +12,24 @@ import numpy as np
 import pytest
 import torch
 
-from flownet2_tpu_torch.checkpoint import init_params
+from flownet2_tpu_torch.checkpoint import init_params, load_into
 from flownet2_tpu_torch.inference import FlowRunner
-from flownet2_tpu_torch.ops.correlation import correlation, correlation_cuda, correlation_plain
-from flownet2_tpu_torch.ops.warp import flow_warp, flow_warp_cuda, flow_warp_plain
+from flownet2_tpu_torch.models import FlowNet2
+from flownet2_tpu_torch.ops.correlation import (
+    correlation,
+    correlation_backward_cuda,
+    correlation_backward_plain,
+    correlation_cuda,
+    correlation_plain,
+)
+from flownet2_tpu_torch.ops.warp import (
+    flow_warp,
+    flow_warp_backward_cuda,
+    flow_warp_backward_plain,
+    flow_warp_cuda,
+    flow_warp_plain,
+)
+from flownet2_tpu_torch.train import objectives
 
 pytestmark = pytest.mark.gpu
 
@@ -108,3 +123,149 @@ def test_flownet2_on_card_uses_kernels_and_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     ref = FlowRunner("flownet2", params, device="cpu").batch(i0, i1)
     assert float(np.sqrt(((got - ref) ** 2).sum(-1)).mean()) <= 1e-2
+
+
+def _rel_close(got, ref, rel):
+    """max |got - ref| <= rel * max |ref|, in float32."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= rel * ref.abs().max().item(), f"max abs err {err} > {rel} * {ref.abs().max().item()}"
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_warp_backward_kernel_matches_plain(cuda, dtype, rel):
+    """d_image (float32 atomics, then the image dtype) and d_flow, NaN flows
+    included: within rel * max|ref| of autograd through the plain version;
+    d_flow is exactly 0 at the NaN flows."""
+    img, flow = _warp_inputs(cuda)
+    img, flow = img.to(dtype), flow.to(dtype)
+    g = torch.randn(img.shape, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    before = flow_warp_backward_cuda.launches
+    d_img, d_flow = flow_warp_backward_cuda(img, flow, g)
+    torch.cuda.synchronize()
+    assert flow_warp_backward_cuda.launches == before + 1
+    ref_img, ref_flow = flow_warp_backward_plain(img, flow, g)
+    assert d_img.dtype == d_flow.dtype == dtype
+    _rel_close(d_img, ref_img, rel)
+    _rel_close(d_flow, ref_flow, rel)
+    assert not d_flow[:, :, 7, :4].any()
+    only_flow = flow_warp_backward_cuda(img, flow, g, need_image=False)
+    assert only_flow[0] is None and torch.equal(only_flow[1], d_flow)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_correlation_backward_kernel_matches_plain(cuda, dtype, rel):
+    g0 = torch.Generator().manual_seed(4)
+    f1 = torch.randn(2, 256, 12, 14, generator=g0).to(cuda, dtype)
+    f2 = torch.randn(2, 256, 12, 14, generator=g0).to(cuda, dtype)
+    g = torch.randn(2, 441, 12, 14, generator=g0).to(cuda, dtype)
+    nhwc = (lambda t: t.permute(0, 2, 3, 1).contiguous())
+    before = correlation_backward_cuda.launches
+    df1, df2 = correlation_backward_cuda(nhwc(f1), nhwc(f2), g, max_displacement=20, stride2=2)
+    torch.cuda.synchronize()
+    assert correlation_backward_cuda.launches == before + 1
+    ref1, ref2 = correlation_backward_plain(f1, f2, g, **FLOWNETC_CORR)
+    assert df1.dtype == df2.dtype == dtype
+    _rel_close(df1, nhwc(ref1), rel)
+    _rel_close(df2, nhwc(ref2), rel)
+
+
+@pytest.mark.parametrize("fill", [0.0, float("nan")])
+def test_autograd_through_the_kernels_matches_plain(cuda, fill):
+    """torch.autograd.grad through flow_warp and correlation on the card
+    (the kernels' autograd Functions) equals the same call on the CPU (the
+    plain versions), with strided incoming gradients."""
+    img, flow = _warp_inputs(cuda)
+    ic, fc = img.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    ip, fp = img.cpu().requires_grad_(True), flow.cpu().requires_grad_(True)
+    g = torch.randn(img.shape[0], img.shape[2], img.shape[3], img.shape[1],
+                    generator=torch.Generator().manual_seed(5)).permute(0, 3, 1, 2)  # not contiguous
+    b0, f0 = flow_warp_backward_cuda.launches, flow_warp_cuda.launches
+    got = torch.autograd.grad(flow_warp(ic, fc, fill), (ic, fc), g.to(cuda))
+    assert (flow_warp_cuda.launches - f0, flow_warp_backward_cuda.launches - b0) == (1, 1)
+    ref = torch.autograd.grad(flow_warp(ip, fp, fill), (ip, fp), g)
+    for a, b in zip(got, ref):
+        _rel_close(a, b, 1e-5)
+
+    g0 = torch.Generator().manual_seed(6)
+    f1, f2 = (torch.randn(2, 64, 10, 12, generator=g0) for _ in range(2))
+    a, b = f1.to(cuda).requires_grad_(True), f2.to(cuda).requires_grad_(True)
+    gc = torch.randn(2, 441, 10, 12, generator=g0)
+    c0 = correlation_backward_cuda.launches
+    got = torch.autograd.grad(correlation(a, b, **FLOWNETC_CORR), (a, b), gc.to(cuda))
+    assert correlation_backward_cuda.launches - c0 == 1
+    ap, bp = f1.requires_grad_(True), f2.requires_grad_(True)
+    ref = torch.autograd.grad(correlation(ap, bp, **FLOWNETC_CORR), (ap, bp), gc)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape
+        _rel_close(x, y, 1e-5)
+
+
+def _smooth_batch(n=1, h=64, w=128, seed=11):
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = rng.uniform(0.01, 0.05, (n, 1, 1, 3))
+    img0 = 127.5 + 60 * np.sin(xs[None, ..., None] * f + ys[None, ..., None] * f[..., ::-1])
+    flow = rng.normal(0, 2, (n, h, w, 2)).astype(np.float32)
+    return {"img0": img0.astype(np.float32), "img1": np.roll(img0, 2, axis=2).astype(np.float32), "flow": flow}
+
+
+def _loss_and_grads(flat, batch, loss_fn, sub_name, device):
+    with torch.device("meta"):
+        net = FlowNet2()
+    net = load_into(net, flat).to(device)
+    for p in net.parameters():
+        p.requires_grad_(False)
+    sub = net if sub_name is None else getattr(net, sub_name)
+    for p in sub.parameters():
+        p.requires_grad_(True)
+    loss, _ = loss_fn(net, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    loss.backward()
+    return loss.item(), {k: p.grad.cpu() for k, p in sub.named_parameters()}
+
+
+def _grad_errors(grads, ref):
+    """Relative L2 error of all tensors together, and of the median tensor."""
+    diff = sum(((grads[k] - r) ** 2).sum().item() for k, r in ref.items())
+    norm = sum((r ** 2).sum().item() for r in ref.values())
+    per = sorted(((grads[k] - r).norm() / r.norm()).item() for k, r in ref.items())
+    return (diff / norm) ** 0.5, per[len(per) // 2]
+
+
+@pytest.mark.parametrize("case", ["flownetc-stage", "joint"])
+def test_train_step_on_card_uses_kernels_and_matches_cpu(cuda, case):
+    """One float32 loss and gradient on the card (TF32 off, cuDNN's
+    deterministic algorithms) against the port on the CPU, on three batches:
+    loss rtol 1e-4; the gradients' relative L2 error over all tensors
+    together <= 1e-3 and the median tensor's <= 1e-3. The FlowNetC stage
+    launches the correlation forward and backward once each; the joint loss
+    also 4 warps and 4 warp backwards.
+
+    The gradients are held as a whole because kinks of the random net
+    (leaky ReLUs, warp tap boundaries) within float32 noise of their inputs
+    flip between the card and the CPU and move some tensors by 1e-3 to
+    1e-2; moving the CPU's input by 1e-6 does the same
+    (scripts/probe_grads.py)."""
+    loss_fn, sub, counts = {
+        "flownetc-stage": (objectives.LOSSES["flownet2-c-stage"], "flownetc", (0, 0, 1, 1)),
+        "joint": (objectives.flownet2_loss, None, (4, 4, 1, 1)),
+    }[case]
+    flat = init_params("flownet2", seed=3)
+    kernels = (flow_warp_cuda, flow_warp_backward_cuda, correlation_cuda, correlation_backward_cuda)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
+    for seed in (11, 12, 13):
+        batch = _smooth_batch(seed=seed)
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        cudnn.deterministic = True
+        try:
+            before = [k.launches for k in kernels]
+            loss, grads = _loss_and_grads(flat, batch, loss_fn, sub, cuda)
+            assert tuple(k.launches - b for k, b in zip(kernels, before)) == counts
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = flags
+        ref_loss, ref_grads = _loss_and_grads(flat, batch, loss_fn, sub, "cpu")
+        np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+        whole, median = _grad_errors(grads, ref_grads)
+        assert whole <= 1e-3 and median <= 1e-3, f"seed {seed}: relative L2 of all {whole:.3g}, median {median:.3g}"

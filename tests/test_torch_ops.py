@@ -6,6 +6,7 @@ the boundary. On CPU tensors the port runs its plain PyTorch versions (the
 CUDA kernels are held against those on the card in test_torch_gpu.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,9 +25,14 @@ from flownet2_tpu_torch import checkpoint
 from flownet2_tpu_torch.models.common import conv, deconv
 from flownet2_tpu_torch.ops.activations import leaky_relu
 from flownet2_tpu_torch.ops.channel_norm import channel_norm
-from flownet2_tpu_torch.ops.correlation import correlation, correlation_plain
+from flownet2_tpu_torch.ops.correlation import (
+    correlation,
+    correlation_backward_cuda,
+    correlation_backward_plain,
+    correlation_plain,
+)
 from flownet2_tpu_torch.ops.resample import resample
-from flownet2_tpu_torch.ops.warp import flow_warp, flow_warp_plain
+from flownet2_tpu_torch.ops.warp import flow_warp, flow_warp_backward_cuda, flow_warp_backward_plain, flow_warp_plain
 from oracles import correlation_oracle, flow_warp_oracle
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
@@ -108,6 +114,63 @@ def test_flow_warp_cuda_wrapper_refuses_cpu_tensors():
     assert flow_warp_cuda.launches == before
 
 
+def _warp_vjp_jax(img, flow, g, fill):
+    _, vjp = jax.vjp(lambda a, b: flow_warp_gather(a, b, fill), jnp.asarray(img), jnp.asarray(flow))
+    return tuple(np.asarray(v) for v in vjp(jnp.asarray(g)))
+
+
+def _warp_grads(img, flow, g, fill):
+    """The autograd route of flow_warp (NCHW) -> NHWC gradients."""
+    ti, tf = nchw(img).requires_grad_(True), nchw(flow).requires_grad_(True)
+    d_img, d_flow = torch.autograd.grad(flow_warp(ti, tf, fill), (ti, tf), nchw(g))
+    return nhwc(d_img), nhwc(d_flow)
+
+
+@pytest.mark.parametrize("fill", [0.0, float("nan")])
+def test_flow_warp_backward_matches_jax_vjp(rng, fill):
+    """d_image and d_flow, with targets out of range and in the clamped last
+    column, against jax.vjp of the gather warp: rtol/atol 1e-5. Both the
+    autograd route and flow_warp_backward_plain."""
+    img, flow = _warp_inputs(rng)
+    flow[:, 7, :4, :] = 3.25  # no NaN flows here (see the next test)
+    g = rng.standard_normal(img.shape).astype(np.float32)
+    ref_img, ref_flow = _warp_vjp_jax(img, flow, g, fill)
+    got_img, got_flow = _warp_grads(img, flow, g, fill)
+    plain_img, plain_flow = flow_warp_backward_plain(nchw(img), nchw(flow), nchw(g))
+    for got, ref in ((got_img, ref_img), (got_flow, ref_flow), (nhwc(plain_img), ref_img),
+                     (nhwc(plain_flow), ref_flow)):
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert np.abs(ref_flow).max() > 1 and np.abs(ref_img).max() > 1
+    assert not got_flow[:, 5, :, 0].any()  # x2 in (W-1, W): the clip saturates
+
+
+def test_flow_warp_backward_nan_flow_is_zero_and_finite(rng):
+    """A NaN flow passes no gradient: 0, never NaN (JAX's gather VJP gives
+    NaN there); elsewhere the gradients equal JAX's."""
+    img, flow = _warp_inputs(rng)  # row 7 has NaN flows
+    g = rng.standard_normal(img.shape).astype(np.float32)
+    ref_img, ref_flow = _warp_vjp_jax(img, flow, g, 0.0)
+    for fill in (0.0, float("nan")):
+        got_img, got_flow = _warp_grads(img, flow, g, fill)
+        assert np.isfinite(got_img).all() and np.isfinite(got_flow).all()
+        assert not got_flow[:, 7, :4].any()
+        ok = np.isfinite(ref_flow)
+        np.testing.assert_allclose(got_flow[ok], ref_flow[ok], rtol=1e-5, atol=1e-5)
+        ok = np.isfinite(ref_img)
+        np.testing.assert_allclose(got_img[ok], ref_img[ok], rtol=1e-5, atol=1e-5)
+
+
+def test_backward_cuda_wrappers_refuse_cpu_tensors():
+    before = flow_warp_backward_cuda.launches, correlation_backward_cuda.launches
+    z = torch.zeros(1, 3, 4, 4)
+    with pytest.raises(ValueError):
+        flow_warp_backward_cuda(z, torch.zeros(1, 2, 4, 4), z)
+    f = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError):
+        correlation_backward_cuda(f, f, torch.zeros(1, 9, 4, 4), max_displacement=1, stride2=1)
+    assert (flow_warp_backward_cuda.launches, correlation_backward_cuda.launches) == before
+
+
 # -- Correlation --------------------------------------------------------------
 
 
@@ -131,6 +194,25 @@ def test_correlation_matches_jax_and_oracle(rng, case):
     tol = 1e-5 * np.abs(ref).max()
     np.testing.assert_allclose(got, ref, atol=tol)
     np.testing.assert_allclose(got, oracle, atol=tol)
+
+
+@pytest.mark.parametrize("kw", [dict(max_displacement=4, stride2=2, pad=4),
+                                dict(max_displacement=20, stride2=2, pad=20)], ids=["md4", "flownetc"])
+def test_correlation_backward_matches_jax_vjp(rng, kw):
+    """df1 and df2 at 8 channels against jax.vjp of correlation_auto (its
+    hand-written VJP): atol 1e-5 of max|ref|. Both the autograd route and
+    correlation_backward_plain."""
+    f1 = rng.standard_normal((2, 9, 11, 8)).astype(np.float32)
+    f2 = rng.standard_normal((2, 9, 11, 8)).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b: correlation_auto(a, b, **kw), jnp.asarray(f1), jnp.asarray(f2))
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    ref1, ref2 = (np.asarray(v) for v in vjp(jnp.asarray(g)))
+    a, b = nchw(f1).requires_grad_(True), nchw(f2).requires_grad_(True)
+    got1, got2 = torch.autograd.grad(correlation(a, b, **kw), (a, b), nchw(g))
+    plain1, plain2 = correlation_backward_plain(nchw(f1), nchw(f2), nchw(g), **kw)
+    for got, ref in ((got1, ref1), (got2, ref2), (plain1, ref1), (plain2, ref2)):
+        tol = 1e-5 * np.abs(ref).max()
+        np.testing.assert_allclose(nhwc(got), ref, rtol=1e-5, atol=tol)
 
 
 def test_correlation_flownetc_channels_and_dtype(rng):
@@ -163,6 +245,17 @@ def test_resample_matches_jax(rng, in_hw, out_hw, antialias):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
+def test_resample_differentiates_after_an_inference_mode_call(rng):
+    """The cached weight matrices made under inference_mode (FlowRunner.run)
+    must serve a later training step: autograd refuses inference tensors."""
+    x = torch.from_numpy(rng.standard_normal((1, 2, 7, 9)).astype(np.float32))
+    with torch.inference_mode():
+        resample(x, 28, 36, antialias=False)
+    y = x.clone().requires_grad_(True)
+    resample(y, 28, 36, antialias=False).sum().backward()
+    assert y.grad is not None and torch.isfinite(y.grad).all()
+
+
 def test_resample_keeps_dtype_and_identity(rng):
     x = torch.from_numpy(rng.standard_normal((1, 2, 8, 8)).astype(np.float32)).bfloat16()
     assert resample(x, 16, 16).dtype == torch.bfloat16
@@ -174,6 +267,21 @@ def test_channel_norm_matches_jax(rng):
     x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
     got = nhwc(channel_norm(nchw(x)))
     np.testing.assert_allclose(got, np.asarray(jax_channel_norm(jnp.asarray(x))), rtol=1e-6)
+
+
+def test_channel_norm_backward_is_stabilized_and_matches_jax(rng):
+    """Exactly-zero channel vectors: the gradient is finite and equals
+    jax.grad of the JAX custom-JVP op (rtol 1e-6); plain autograd of sqrt
+    gives NaN there."""
+    x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
+    x[0, 1:3, 2:4] = 0.0
+    x[1, 4, 6] = 0.0
+    w = rng.standard_normal((2, 5, 7, 1)).astype(np.float32)
+    ref = jax.grad(lambda a: jnp.sum(jax_channel_norm(a) * w))(jnp.asarray(x))
+    t = nchw(x).requires_grad_(True)
+    (channel_norm(t) * nchw(w)).sum().backward()
+    assert torch.isfinite(t.grad).all()
+    np.testing.assert_allclose(nhwc(t.grad), np.asarray(ref), rtol=1e-6)
 
 
 def test_leaky_relu_matches_jax(rng):
