@@ -2,12 +2,20 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
 Builds the hand-written CUDA kernels from ``flownet2_tpu_torch/csrc``, holds
-each (warp and correlation, forward and backward) against its plain
-PyTorch version on the card at the shapes FlowNet2 gives it at 448x320
-batch 8, then drives the port's two paths with seeded random weights:
+each against its plain PyTorch version on the card at the shapes FlowNet2
+gives it (warp and correlation, forward and backward, at 448x320 batch 8;
+the head convs, K3, and the fused fusion-net decoder head, K4, at Sintel
+size 1024x448 batch 4), then drives the port's paths with seeded random
+weights:
 
-- inference: FlowNet2 through ``FlowRunner`` (float32 and bfloat16) and the
-  ``run_flownet`` CLI, checked against the same port on the CPU;
+- inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
+  bfloat16) and the ``run_flownet`` CLI, checked against the same port on
+  the CPU; the head kernels launch no time there;
+- inference at Sintel size, 1024x436 frames b4: FlowNet2 through
+  ``FlowRunner`` (float32 and bfloat16, with and without the fused head),
+  its launches of every kernel, the card against the CPU and the fused head
+  against the unfused one, and the ``run_flownet_many`` CLI over jobs of two
+  resolutions;
 - training: ``Solver`` steps at 448x320 b8 from the port's ``BatchLoader``
   over a synthetic FlyingChairs-layout directory (the FlowNetC stage in
   float32 and bfloat16, the joint FlowNet2 loss, one S1-stage step), one
@@ -21,8 +29,10 @@ and times the nets, the train steps and each kernel with CUDA events.
 Every phase raises on failure. Standard output ends with two JSON lines:
 the kernels (name, route, source, the TPU kernel it replaces, launches in
 its path's run, max abs error against the plain version, ms beside the
-plain version's ms), then {"ok": true, "device": {...}}. Imports neither
-jax nor the JAX package.
+plain version's ms, the bound the card's peaks set for the same work and
+which peak sets it, and the time of one PyTorch library call that computes
+the same function, where there is one), then {"ok": true, "device": {...}}.
+Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +55,11 @@ N, H, W = 8, 320, 448
 SEED = 0
 CORR = dict(max_displacement=20, kernel_size=1, stride1=1, stride2=2, pad=20)
 CORR_SHAPE = (N, 256, H // 8, W // 8)  # FlowNetC's conv3 features at 448x320
+SINTEL_N, SINTEL_FRAME = 4, (436, 1024)  # Sintel frames; FlowRunner adapts them to 448x1024
+SINTEL_H, SINTEL_W = 448, 1024
+# published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
+# tensor cores, and device memory
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -66,6 +81,14 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 9) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the float32 operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_device() -> tuple[str, str]:
@@ -139,9 +162,13 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     ms = cuda_ms(lambda: flow_warp_cuda(img32, flow32))
     plain_ms = cuda_ms(lambda: flow_warp_plain(img32, flow32))
     print(f"[kernels] flow_warp f32 {N}x3x{H}x{W}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+    # image and flow read, output written; 3 lerps (9 operations) per channel.
+    # No library call: grid_sample's clamping and validity conventions differ.
+    px = N * H * W
     results["flow_warp"] = dict(
         name="flow_warp", route="cuda", source="flownet2_tpu_torch/csrc/warp.cu",
         replaces="flownet2_tpu/ops/pallas/warp.py:158", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(4 * px * (3 + 2 + 3), 9 * 3 * px), library_ms=None,
     )
 
     g = torch.Generator().manual_seed(SEED + 1)
@@ -165,9 +192,13 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
             plain_ms = cuda_ms(lambda: correlation_plain(a, b, **CORR))
     print(f"[kernels] correlation f32 {CORR_SHAPE} NCHW -> 441 channels: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms ({card})")
+    # f1 and f2 read, 441 channels written; one multiply-add per channel and
+    # displacement. No library call computes a cost volume.
+    n_, c_, h_, w_ = CORR_SHAPE
     results["correlation"] = dict(
         name="correlation", route="cuda", source="flownet2_tpu_torch/csrc/correlation.cu",
         replaces="flownet2_tpu/ops/correlation.py:434", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(4 * (2 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 2 * n_ * 441 * h_ * w_ * c_), library_ms=None,
     )
     results.update(phase_backward_kernels(dev, card, img32, flow32, f1, f2))
     return results
@@ -209,9 +240,13 @@ def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
     plain_ms = cuda_ms(lambda: flow_warp_backward_plain(img32, flow32, g32))
     print(f"[kernels] flow_warp_backward f32 {N}x3x{H}x{W}: kernel {ms:.4f} ms (d_flow only {flow_ms:.4f} ms), "
           f"plain {plain_ms:.4f} ms ({card})")
+    # image, flow and g read, d_image and d_flow written; about 20 operations
+    # per channel (4 weighted scatters, the two spatial differences)
+    px = N * H * W
     results["flow_warp_backward"] = dict(
         name="flow_warp_backward", route="cuda", source="flownet2_tpu_torch/csrc/warp_bwd.cu",
         replaces="flownet2_tpu/ops/pallas/warp.py:374", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(4 * px * (3 + 2 + 3 + 3 + 2), 20 * 3 * px), library_ms=None,
     )
 
     g_corr = torch.randn((N, 441, H // 8, W // 8), generator=torch.Generator().manual_seed(SEED + 3)).to(dev)
@@ -234,18 +269,167 @@ def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
     plain_ms = cuda_ms(lambda: correlation_backward_plain(f1, f2, g_corr, **CORR), warmup=1, runs=3)
     print(f"[kernels] correlation_backward f32 {CORR_SHAPE} NCHW, 441 channels: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms ({card})")
+    # f1, f2 and g read, df1 and df2 written; two passes of the forward's work
+    n_, c_, h_, w_ = CORR_SHAPE
     results["correlation_backward"] = dict(
         name="correlation_backward", route="cuda", source="flownet2_tpu_torch/csrc/correlation_bwd.cu",
         replaces="flownet2_tpu/ops/correlation.py:252", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **bound(4 * (4 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 4 * n_ * 441 * h_ * w_ * c_), library_ms=None,
     )
     return results
 
 
-def synthetic_pairs(n: int) -> tuple[np.ndarray, np.ndarray]:
+# K3's geometries at Sintel b4, one per distinct layer shape of a FlowNet2
+# forward: (label, input (N, Cin, H, W), weight shape, stride (0: the k4/s2
+# deconv), leaky, launches per forward)
+HEAD_GEOMETRIES = (
+    ("7x7/s2 3->64 (FlowNetC conv1, per tower)", (SINTEL_N, 3, SINTEL_H, SINTEL_W), (64, 3, 7, 7), 2, True, 2),
+    ("7x7/s2 12->64 (FlowNetS_1/_2 conv1)", (SINTEL_N, 12, SINTEL_H, SINTEL_W), (64, 12, 7, 7), 2, True, 2),
+    ("3x3/s1 6->64 (FlowNetSD conv0)", (SINTEL_N, 6, SINTEL_H, SINTEL_W), (64, 6, 3, 3), 1, True, 1),
+    ("3x3/s1 11->64 (fusion conv0)", (SINTEL_N, 11, SINTEL_H, SINTEL_W), (64, 11, 3, 3), 1, True, 1),
+    ("3x3/s2 64->64 (FlowNetSD conv1, fusion conv1)", (SINTEL_N, 64, SINTEL_H, SINTEL_W), (64, 64, 3, 3), 2, True,
+     2),
+    ("3x3/s1 82->16 (fusion inter_conv0)", (SINTEL_N, 82, SINTEL_H, SINTEL_W), (16, 82, 3, 3), 1, False, 1),
+    ("3x3/s1 16->2 (fusion predict_flow0)", (SINTEL_N, 16, SINTEL_H, SINTEL_W), (2, 16, 3, 3), 1, False, 1),
+    ("k4/s2 deconv 162->16 (fusion deconv0)", (SINTEL_N, 162, SINTEL_H // 2, SINTEL_W // 2), (162, 16, 4, 4), 0,
+     True, 1),
+    ("k4/s2 deconv 2->2 (fusion upsample_flow1to0)", (SINTEL_N, 2, SINTEL_H // 2, SINTEL_W // 2), (2, 2, 4, 4), 0,
+     False, 1),
+)
+# limits on the kernels' max abs error against the plain versions, times max|ref|
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def phase_head_kernels(dev: torch.device, card: str) -> dict:
+    """K3 at each Sintel b4 geometry and K4 at Sintel b4 against their plain
+    versions (float32 and bfloat16), with times beside the plain versions,
+    the cuDNN calls and the bounds. The head_conv entry sums one forward's
+    twelve launches; its error is the worst of the float32 checks."""
+    import torch.nn.functional as F
+
+    from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda, fusion_head_plain, head_weights
+    from flownet2_tpu_torch.ops.head_conv import (
+        head_conv2d_cuda, head_conv2d_plain, head_deconv2d_cuda, head_deconv2d_plain,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0)
+    worst = 0.0
+    for label, x_shape, w_shape, stride, leaky, count in HEAD_GEOMETRIES:
+        deconv = stride == 0
+        x32 = torch.randn(x_shape, generator=g).to(dev)
+        w32 = (torch.randn(w_shape, generator=g) * 0.1).to(dev)
+        b32 = torch.randn(w_shape[1] if deconv else w_shape[0], generator=g).to(dev)
+        if deconv:
+            kernel = lambda x, w, b: head_deconv2d_cuda(x, w, b, leaky=leaky)  # noqa: E731
+            plain = lambda x, w, b: head_deconv2d_plain(x, w, b, leaky=leaky)  # noqa: E731
+            library = lambda: F.conv_transpose2d(x32, w32, b32, stride=2, padding=1)  # noqa: E731
+        else:
+            kernel = lambda x, w, b: head_conv2d_cuda(x, w, b, stride=stride, leaky=leaky)  # noqa: E731
+            plain = lambda x, w, b: head_conv2d_plain(x, w, b, stride=stride, leaky=leaky)  # noqa: E731
+            library = lambda: F.conv2d(x32, w32, b32, stride=stride, padding=w_shape[-1] // 2)  # noqa: E731
+        errs = []
+        for dtype, rel in REL_TOL.items():
+            args = tuple(t.to(dtype) for t in (x32, w32, b32))
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            check(got.shape == ref.shape and got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"head_conv {label} {dtype}: shape, dtype, finiteness")
+            err, top = abs_err_and_scale(got, ref)
+            check(err <= rel * top, f"head_conv {label} {dtype}: max abs err {err} > {rel * top}")
+            errs.append(f"{str(dtype)[6:]} {err:.3g} (tol {rel * top:.3g})")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+                out_numel = got.numel()
+            del got, ref, args
+        ms = cuda_ms(lambda: kernel(x32, w32, b32))
+        plain_ms = cuda_ms(lambda: plain(x32, w32, b32))
+        library_ms = cuda_ms(library)
+        cout, cin = (w_shape[1], w_shape[0]) if deconv else w_shape[:2]
+        taps = 4 if deconv else w_shape[2] * w_shape[3]
+        flops = 2 * out_numel * cin * taps
+        nbytes = 4 * (x32.numel() + w32.numel() + b32.numel() + out_numel)
+        b = bound(nbytes, flops)
+        print(f"[kernels] head_conv {label}, x {tuple(x_shape)}: max abs err {'; '.join(errs)}; f32 kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN call {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"{flops / ms / 1e9:.2f} TFLOP/s; {count} per forward ({card})")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                       ("bound_ms", b["bound_ms"]), ("bytes", nbytes), ("flops", flops)):
+            totals[key] += count * v
+        del x32, w32, b32
+        torch.cuda.empty_cache()
+    print(f"[kernels] head_conv, one Sintel b4 forward's 12 launches, f32: kernel {totals['ms']:.4f} ms, plain "
+          f"{totals['plain_ms']:.4f} ms, cuDNN calls {totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} "
+          f"ms ({totals['flops'] / 1e9:.1f} GFLOP, {totals['bytes'] / 1e9:.2f} GB) ({card})")
+    results = {"head_conv": dict(
+        name="head_conv", route="cuda", source="flownet2_tpu_torch/csrc/head_conv.cu",
+        replaces="flownet2_tpu/ops/pallas/s2d_conv.py:153", max_abs_err=worst, ms=totals["ms"],
+        plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
+        bound_by=bound(totals["bytes"], totals["flops"])["bound_by"], library_ms=totals["library_ms"],
+    )}
+
+    # K4 at Sintel b4: concat1 (N, 162, H/2, W/2) and c0 (N, 64, H, W)
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.models import FlowNet2
+
+    flat = init_params("flownet2", seed=SEED)
+    rng = np.random.default_rng(SEED + 6)
+    for key in flat:
+        if key.startswith("fusion/") and key.endswith("/b"):
+            flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32) * 0.3
+    with torch.device("meta"):
+        net = FlowNet2()
+    fusion = load_into(net, flat).fusion.to(dev)
+    cat1 = torch.randn(SINTEL_N, 162, SINTEL_H // 2, SINTEL_W // 2, generator=g).to(dev)
+    c0 = torch.randn(SINTEL_N, 64, SINTEL_H, SINTEL_W, generator=g).to(dev)
+    worst, errs = 0.0, []
+    with torch.no_grad():
+        for dtype, rel in REL_TOL.items():
+            weights = tuple(t.to(dtype) for t in head_weights(fusion))
+            args = (cat1.to(dtype), c0.to(dtype))
+            got = fusion_head_cuda(*args, *weights)
+            torch.cuda.synchronize()
+            ref = fusion_head_plain(*args, *weights)
+            for what, x, y in zip(("flow0", "flow1"), got, ref):
+                check(x.shape == y.shape and x.dtype == dtype and bool(torch.isfinite(x).all()),
+                      f"fusion_head {what} {dtype}: shape, dtype, finiteness")
+                err, top = abs_err_and_scale(x, y)
+                check(err <= rel * top, f"fusion_head {what} {dtype}: max abs err {err} > {rel * top}")
+                errs.append(f"{what} {str(dtype)[6:]} {err:.3g} (tol {rel * top:.3g})")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+        weights = head_weights(fusion)
+        ms = cuda_ms(lambda: fusion_head_cuda(cat1, c0, *weights))
+        plain_ms = cuda_ms(lambda: fusion_head_plain(cat1, c0, *weights))
+    n_, h_, w_ = SINTEL_N, SINTEL_H, SINTEL_W
+    hw, hw2 = h_ * w_, h_ * w_ // 4
+    # multiply-adds per output value times outputs: inter_conv1, predict_flow1
+    # (half resolution), deconv0, upsample_flow1to0 (4 taps), inter_conv0,
+    # predict_flow0 (full resolution)
+    flops = 2 * n_ * (hw2 * (32 * 162 * 9 + 2 * 32 * 9) + hw * (16 * 162 * 4 + 2 * 2 * 4 + 16 * 82 * 9 + 2 * 16 * 9))
+    nbytes = 4 * (cat1.numel() + c0.numel() + sum(t.numel() for t in weights) + n_ * 2 * (hw + hw2))
+    b = bound(nbytes, flops)
+    print(f"[kernels] fusion_head Sintel b{n_}, concat1 {tuple(cat1.shape)}, c0 {tuple(c0.shape)}: max abs err "
+          f"{'; '.join(errs)}; f32 kernel {ms:.4f} ms, plain (the six cuDNN conv/deconv calls with leaky and "
+          f"concat; no single library call computes the head) {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s ({card})")
+    results["fusion_head"] = dict(
+        name="fusion_head", route="cuda", source="flownet2_tpu_torch/csrc/fusion_head.cu",
+        replaces="flownet2_tpu/ops/pallas/fusion_head.py:353", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        **b, library_ms=None,
+    )
+    del cat1, c0, fusion, net
+    torch.cuda.empty_cache()
+    return results
+
+
+def synthetic_pairs(n: int, h: int = H, w: int = W) -> tuple[np.ndarray, np.ndarray]:
     """Seeded smooth RGB textures (0-255) and copies shifted by a few pixels."""
     rng = np.random.default_rng(SEED)
-    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
-    img0 = np.zeros((n, H, W, 3), np.float32)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    img0 = np.zeros((n, h, w, 3), np.float32)
     for k in range(6):
         f = rng.uniform(0.01, 0.08, (n, 1, 1, 3))
         p = rng.uniform(0, 6.283, (n, 1, 1, 3))
@@ -259,26 +443,21 @@ def phase_slice(dev: torch.device, card: str, kernels: dict) -> dict:
     from flownet2_tpu_torch.checkpoint import init_params
     from flownet2_tpu_torch.core.flow_io import read_flo, write_ppm
     from flownet2_tpu_torch.inference import FlowRunner
-    from flownet2_tpu_torch.ops.correlation import correlation_cuda
-    from flownet2_tpu_torch.ops.warp import flow_warp_cuda
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[slice] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     params = init_params("flownet2", seed=SEED)
     img0, img1 = synthetic_pairs(N)
     runner = FlowRunner("flownet2", params, device=dev)
 
-    flow_warp_cuda.launches = 0
-    correlation_cuda.launches = 0
+    reset_inference_counts()
     flow = runner.batch(img0, img1)
-    kernels["flow_warp"]["launches"] = flow_warp_cuda.launches
-    kernels["correlation"]["launches"] = correlation_cuda.launches
-    print(f"[slice] FlowNet2 f32 {N}x{H}x{W}: flow {flow.shape}, launches: flow_warp "
-          f"{flow_warp_cuda.launches}, correlation {correlation_cuda.launches}")
-    check(flow_warp_cuda.launches == 4, f"flow_warp launched {flow_warp_cuda.launches} times, expected 4")
-    check(correlation_cuda.launches == 1, f"correlation launched {correlation_cuda.launches} times, expected 1")
+    got = inference_counts()
+    kernels["flow_warp"]["launches"] = got["flow_warp"]
+    kernels["correlation"]["launches"] = got["correlation"]
+    print(f"[slice] FlowNet2 f32 {N}x{H}x{W}: flow {flow.shape}, launches: {got}")
+    expected = dict(flow_warp=4, correlation=1, head_conv=0, fusion_head=0)
+    check(got == expected, f"launches {got}, expected {expected} (the head kernels route only above width 512)")
     check(flow.shape == (N, H, W, 2) and np.isfinite(flow).all(), "f32 flow shape or finiteness")
 
     t0 = time.perf_counter()
@@ -302,13 +481,10 @@ def phase_slice(dev: torch.device, card: str, kernels: dict) -> dict:
                "--gpu", "0"]
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         check(proc.returncode == 0, f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
-        with open(out, "rb") as f:
-            magic, w, h = f.read(4), *struct.unpack("<ii", f.read(8))
-        size = os.path.getsize(out)
+        magic, w, h, size = flo_header(out)
         check(magic == b"PIEH" and (w, h) == (W, H) and size == 12 + W * H * 8,
               f".flo header {magic!r} {w}x{h}, {size} bytes")
-        cli_flow = read_flo(out)
-        check(np.isfinite(cli_flow).all(), "CLI flow finiteness")
+        check(np.isfinite(read_flo(out)).all(), "CLI flow finiteness")
     print(f"[slice] CLI: {' '.join(cmd[1:4])} ... --gpu 0 -> .flo PIEH {w}x{h}, {size} bytes")
 
     timings = {}
@@ -321,6 +497,116 @@ def phase_slice(dev: torch.device, card: str, kernels: dict) -> dict:
         timings[label] = dict(ms=ms, pairs_per_s=N / (ms / 1e3), max_memory_allocated=mem)
         print(f"[times] FlowNet2 {label} {W}x{H} b{N}: {ms:.3f} ms/batch, {N / (ms / 1e3):.2f} pairs/s, "
               f"max_memory_allocated {mem / 2**20:.1f} MiB ({card})")
+    return timings
+
+
+def inference_counts() -> dict:
+    """Launches of the forward kernels since their counts were last reset."""
+    from flownet2_tpu_torch.ops.correlation import correlation_cuda
+    from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda
+    from flownet2_tpu_torch.ops.head_conv import head_launches
+    from flownet2_tpu_torch.ops.warp import flow_warp_cuda
+
+    return dict(flow_warp=flow_warp_cuda.launches, correlation=correlation_cuda.launches,
+                head_conv=head_launches(), fusion_head=fusion_head_cuda.launches)
+
+
+def reset_inference_counts() -> None:
+    from flownet2_tpu_torch.ops.correlation import correlation_cuda
+    from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda
+    from flownet2_tpu_torch.ops.head_conv import head_conv2d_cuda, head_deconv2d_cuda
+    from flownet2_tpu_torch.ops.warp import flow_warp_cuda
+
+    for k in (flow_warp_cuda, correlation_cuda, head_conv2d_cuda, head_deconv2d_cuda, fusion_head_cuda):
+        k.launches = 0
+
+
+def flo_header(path: str) -> tuple[bytes, int, int, int]:
+    """(magic, width, height, file size) of a .flo file."""
+    with open(path, "rb") as f:
+        magic, w, h = f.read(4), *struct.unpack("<ii", f.read(8))
+    return magic, w, h, os.path.getsize(path)
+
+
+def phase_sintel(dev: torch.device, card: str, kernels: dict) -> dict:
+    """FlowNet2 at Sintel size through FlowRunner (1024x436 frames, adapted
+    to 1024x448, b4), float32 and bfloat16, without and with the fused
+    head; then run_flownet_many over two Sintel-size jobs and one 448x320."""
+    from flownet2_tpu_torch.checkpoint import init_params
+    from flownet2_tpu_torch.core.flow_io import read_flo, write_ppm
+    from flownet2_tpu_torch.inference import FlowRunner
+
+    params = init_params("flownet2", seed=SEED)
+    fh, fw = SINTEL_FRAME
+    img0, img1 = synthetic_pairs(SINTEL_N, fh, fw)
+    runners, flows = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (False, True):
+            label = f"{'f32' if dtype == 'float32' else 'bf16'}{' fused head' if fused else ''}"
+            runners[label] = r = FlowRunner("flownet2", params, device=dev, dtype=dtype, fusion_head=fused)
+            reset_inference_counts()
+            flows[label] = flow = r.batch(img0, img1)
+            got = inference_counts()
+            expected = dict(flow_warp=4, correlation=1, head_conv=8 if fused else 12, fusion_head=int(fused))
+            print(f"[sintel] FlowNet2 {label} {fw}x{fh} b{SINTEL_N}: flow {flow.shape}, launches {got}")
+            check(got == expected, f"{label}: launches {got}, expected {expected}")
+            check(flow.shape == (SINTEL_N, fh, fw, 2) and np.isfinite(flow).all(), f"{label}: flow shape, finiteness")
+            if label == "f32":
+                kernels["head_conv"]["launches"] = got["head_conv"]
+            if label == "f32 fused head":
+                kernels["fusion_head"]["launches"] = got["fusion_head"]
+
+    def epe(a, b):
+        return float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
+
+    t0 = time.perf_counter()
+    ref0 = FlowRunner("flownet2", params, device="cpu")(img0[0], img1[0])
+    card_cpu = epe(flows["f32"][0], ref0)
+    print(f"[sintel] pair 0, card vs the port on the CPU ({time.perf_counter() - t0:.1f} s on the CPU): mean EPE "
+          f"{card_cpu:.3g} px (limit 1e-2); mean |flow| {np.abs(ref0).mean():.3g} px")
+    check(card_cpu <= 1e-2, f"Sintel card vs CPU mean EPE {card_cpu} > 1e-2")
+    fused_unfused = epe(flows["f32 fused head"], flows["f32"])
+    print(f"[sintel] f32 fused head vs unfused on the card, {SINTEL_N} pairs: mean EPE {fused_unfused:.3g} px "
+          f"(limit 1e-3); bf16 fused vs unfused {epe(flows['bf16 fused head'], flows['bf16']):.3g} px, bf16 vs f32 "
+          f"{epe(flows['bf16'], flows['f32']):.3g} px (random weights: not evidence)")
+    check(fused_unfused <= 1e-3, f"fused vs unfused mean EPE {fused_unfused} > 1e-3")
+
+    timings = {}
+    i0, i1 = torch.as_tensor(img0, device=dev), torch.as_tensor(img1, device=dev)
+    for label, r in runners.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: r.run(i0, i1), warmup=3, runs=7)
+        mem = torch.cuda.max_memory_allocated()
+        timings[label] = dict(ms=ms, pairs_per_s=SINTEL_N / (ms / 1e3), max_memory_allocated=mem)
+        print(f"[times] FlowNet2 Sintel {label} {fw}x{fh} b{SINTEL_N}: {ms:.3f} ms/batch, "
+              f"{SINTEL_N / (ms / 1e3):.2f} pairs/s, max_memory_allocated {mem / 2**20:.1f} MiB ({card})")
+    del runners, i0, i1
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small0, small1 = synthetic_pairs(1)
+        frames = [(img0[0], img1[0]), (img0[1], img1[1]), (small0[0], small1[0])]
+        lines, outs = [], []
+        for j, (a, b) in enumerate(frames):
+            pa, pb, out = (os.path.join(tmp, f"job{j}_{x}") for x in ("a.ppm", "b.ppm", "out.flo"))
+            write_ppm(pa, a.astype(np.uint8))
+            write_ppm(pb, b.astype(np.uint8))
+            lines.append(f"{pa} {pb} {out}")
+            outs.append((out, a.shape[1], a.shape[0]))
+        listfile = os.path.join(tmp, "jobs.txt")
+        with open(listfile, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        cmd = [sys.executable, "-m", "flownet2_tpu_torch.cli.run_flownet_many", "random", "flownet2", listfile,
+               "--gpu", "0"]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"run_flownet_many exit {proc.returncode}: {proc.stderr[-2000:]}")
+        for out, w, h in outs:
+            magic, fw_, fh_, size = flo_header(out)
+            check(magic == b"PIEH" and (fw_, fh_) == (w, h) and size == 12 + w * h * 8,
+                  f"{out}: .flo header {magic!r} {fw_}x{fh_}, {size} bytes")
+            check(np.isfinite(read_flo(out)).all(), f"{out}: finiteness")
+    print(f"[sintel] CLI: {' '.join(cmd[1:4])} jobs.txt --gpu 0 -> 3 .flo files (2 at {fw}x{fh}, 1 at {W}x{H}), "
+          f"PIEH headers, finite")
     return timings
 
 
@@ -486,13 +772,17 @@ def phase_train(dev: torch.device, card: str, kernels: dict) -> dict:
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    kernels = phase_kernels(dev, smi)
-    phase_slice(dev, smi, kernels)
+    # float32 convolutions and matmuls in full float32 everywhere (the plain
+    # versions and the card-vs-CPU checks need it)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    kernels = phase_kernels(dev, smi)
+    kernels.update(phase_head_kernels(dev, smi))
+    phase_slice(dev, smi, kernels)
+    phase_sintel(dev, smi, kernels)
     phase_train(dev, smi, kernels)
-    order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward")
+    order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "fusion_head")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -4,10 +4,13 @@ The PyTorch counterpart of ``flownet2_tpu`` (the JAX package, which stays the
 reference). Module names follow the JAX package:
 
 - ``ops``        — leaky ReLU, channel norm, linear resample, the NaN-aware
-                   downsample, the losses, and FlowWarp and Correlation,
-                   each with hand-written CUDA kernels for its forward and
-                   backward (``csrc/``, built on first use by ``_build``)
-                   and a plain PyTorch version that serves CPU tensors.
+                   downsample, the losses, FlowWarp and Correlation (each
+                   with hand-written CUDA kernels for its forward and
+                   backward), the full-resolution head convs and the fused
+                   fusion-net decoder head (hand-written CUDA forwards);
+                   the kernels live in ``csrc/``, built on first use by
+                   ``_build``, and each has a plain PyTorch version that
+                   serves CPU tensors.
 - ``models``     — FlowNetS / C / SD, the fusion net and the FlowNet2 cascade
                    as ``nn.Module``s; their apply functions take and return
                    NHWC like the JAX package, the nets run NCHW inside.
@@ -18,8 +21,8 @@ reference). Module names follow the JAX package:
 - ``train``      — LR policies, the Caffe solvers, the training objectives
                    and the ``Solver`` loop.
 - ``data``       — FlyingChairs and Sintel readers, the prefetching loader.
-- ``cli``        — ``run_flownet`` and ``train``, argument-compatible with
-                   the JAX CLIs.
+- ``cli``        — ``run_flownet``, ``run_flownet_many`` and ``train``,
+                   argument-compatible with the JAX CLIs.
 
 This package imports neither jax nor the JAX package.
 """

@@ -27,7 +27,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "flownet2_tpu_torch"
-SOURCES = ("warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "status.cu")
+SOURCES = (
+    "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "head_conv.cu", "fusion_head.cu",
+    "status.cu",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,6 +52,13 @@ _SIGNATURES = {
     # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement,
     # stride2, dtype, stream
     "fn2_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, weight, bias, out, n, cin, h, w, cout, k, stride, leaky, dtype, stream
+    "fn2_head_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, weight, bias, out, n, cin, h, w, cout, leaky, dtype, stream
+    "fn2_head_deconv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # concat1, c0, then weight and bias of inter_conv1, predict_flow1, deconv0,
+    # upsample_flow1to0, inter_conv0, predict_flow0, flow0, flow1, n, h2, w2, dtype, stream
+    "fn2_fusion_head": (_P,) * 16 + (_I, _I, _I, _I, _P),
 }
 
 

@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device(args) -> str:
+def device_from_args(args) -> str:
     if args.device is not None:
         return args.device
     import torch
@@ -101,7 +101,7 @@ def main(argv=None) -> int:
         check_model(model)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from e
-    device = _device(args)
+    device = device_from_args(args)
     runner = FlowRunner(model, load_weights(args.caffemodel, model), device=device, dtype=args.dtype)
     img0 = read_image(args.img0)
     img1 = read_image(args.img1)

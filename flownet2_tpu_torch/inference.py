@@ -81,11 +81,16 @@ class FlowRunner:
     nested. ``device``: required, e.g. "cuda" (the kernels) or "cpu" (the
     plain versions). ``dtype``: None or "float32" keeps float32; "bfloat16" casts the
     weights and the activations, as the JAX runner does. Flow input and
-    output stay float32 either way.
+    output stay float32 either way. ``fusion_head``: run the fusion net's
+    decoder head as one fused call (the K4 kernel on the card), the
+    counterpart of the JAX package's ``FLOWNET2_TPU_FUSION_HEAD=1``;
+    ``flownet2`` only, default off.
     """
 
-    def __init__(self, model: str, params: dict, *, device, dtype=None):
+    def __init__(self, model: str, params: dict, *, device, dtype=None, fusion_head: bool = False):
         check_model(model)
+        if fusion_head and model != "flownet2":
+            raise ValueError(f"fusion_head applies to flownet2 (the model that runs the fusion net), not {model!r}")
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -93,7 +98,7 @@ class FlowRunner:
         self.device = torch.device(device)
         self.dtype = dtype or torch.float32
         with torch.device("meta"):
-            net = NETS[model]()
+            net = NETS[model](fusion_head=True) if fusion_head else NETS[model]()
         self.net = load_into(net, params).to(device=self.device, dtype=self.dtype).eval()
         self._forward = _make_forward(model)
 

@@ -1,9 +1,12 @@
 """Shared building blocks for the FlowNet encoders and decoders.
 
-Counterpart of flownet2_tpu/models/common.py, plain layout only (the JAX
-package's space-to-depth heads are TPU lane rewrites and are not ported).
+Counterpart of flownet2_tpu/models/common.py, in the plain NCHW layout.
 Layers are registered on the net under the JAX parameter names, so a
-``state_dict`` key ``conv1.weight`` is the JAX ``conv1/w``.
+``state_dict`` key ``conv1.weight`` is the JAX ``conv1/w``. The
+full-resolution head layers go through :func:`head_block`, the counterpart
+of ``strided_head_block`` and of the JAX nets' other ``conv2d_s2d`` /
+``deconv2d_s2d`` calls: the same function, on the K3 kernel where the JAX
+package routes its TPU kernel.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from flownet2_tpu_torch.ops import head_conv
 from flownet2_tpu_torch.ops.activations import leaky_relu
 
 
@@ -37,6 +41,21 @@ def conv_block(layer: nn.Module, x: torch.Tensor, *, relu: bool = True) -> torch
     Serves as both ``conv_block`` and ``deconv_block`` of the JAX package."""
     out = layer(x)
     return leaky_relu(out) if relu else out
+
+
+def head_block(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor, *, relu: bool = True) -> torch.Tensor:
+    """:func:`conv_block` for a full-resolution head layer (a 3x3 or 7x7 conv,
+    stride 1 or 2, or the k4/s2 deconv): on the K3 kernel with bias and leaky
+    ReLU fused when :func:`head_conv.use_head_kernel` says so, else the
+    layer itself. The routing width is the layer's full-resolution width:
+    a conv's input width, a deconv's output width."""
+    deconv_layer = isinstance(layer, nn.ConvTranspose2d)
+    width = 2 * x.shape[-1] if deconv_layer else x.shape[-1]
+    if not head_conv.use_head_kernel(x.device.type, width):
+        return conv_block(layer, x, relu=relu)
+    if deconv_layer:
+        return head_conv.head_deconv2d(x, layer.weight, layer.bias, leaky=relu)
+    return head_conv.head_conv2d(x, layer.weight, layer.bias, stride=layer.stride[0], leaky=relu)
 
 
 def add_refinement_decoder(

@@ -38,15 +38,16 @@ RGB_MAX = 255.0
 
 class FlowNet2(nn.Module):
     """The five sub-nets. The ``flownet2*_forward`` functions below run them
-    as FlowNet2, FlowNet2-CS or FlowNet2-CSS, which share the weights."""
+    as FlowNet2, FlowNet2-CS or FlowNet2-CSS, which share the weights.
+    ``fusion_head``: the fusion net's fused decoder head (``FlowNetFusion``)."""
 
-    def __init__(self):
+    def __init__(self, *, fusion_head: bool = False):
         super().__init__()
         self.flownetc = FlowNetC()
         self.flownets_1 = FlowNetS(in_channels=12)
         self.flownets_2 = FlowNetS(in_channels=12)
         self.flownetsd = FlowNetSD()
-        self.fusion = FlowNetFusion()
+        self.fusion = FlowNetFusion(fusion_head=fusion_head)
 
 
 def normalize_images(img0: torch.Tensor, img1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,6 +15,7 @@ from flownet2_tpu_torch.models.common import (
     add_refinement_decoder,
     conv,
     conv_block,
+    head_block,
     refinement_decoder,
     to_nchw,
     to_nhwc,
@@ -43,7 +44,7 @@ class FlowNetC(nn.Module):
         add_refinement_decoder(self, feature_channels={6: 1024, 5: 512, 4: 512, 3: 256, 2: 128})
 
     def _tower(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        c2 = conv_block(self.conv2, conv_block(self.conv1, x))
+        c2 = conv_block(self.conv2, head_block(self.conv1, x))
         return c2, conv_block(self.conv3, c2)
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor) -> dict[str, torch.Tensor]:

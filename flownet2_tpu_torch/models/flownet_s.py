@@ -14,6 +14,7 @@ from flownet2_tpu_torch.models.common import (
     add_refinement_decoder,
     conv,
     conv_block,
+    head_block,
     refinement_decoder,
     to_nchw,
     to_nhwc,
@@ -47,7 +48,8 @@ class FlowNetS(nn.Module):
         feats = {}
         out = x
         for name in ENCODER_CHANNELS:
-            out = conv_block(getattr(self, name), out)
+            block = head_block if name == "conv1" else conv_block  # the full-resolution head
+            out = block(getattr(self, name), out)
             feats[name] = out
         return refinement_decoder(
             self,

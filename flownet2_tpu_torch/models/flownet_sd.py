@@ -2,7 +2,8 @@
 
 All-3x3 encoder with an extra stride-1 conv0 and doubled conv*_1 layers,
 and a decoder with ``inter_conv`` layers between deconv and flow
-prediction. Plain layout only.
+prediction. conv0 and conv1, the full-resolution head, go through
+``head_block``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from flownet2_tpu_torch.models.common import conv, conv_block, deconv, to_nchw, to_nhwc
+from flownet2_tpu_torch.models.common import conv, conv_block, deconv, head_block, to_nchw, to_nhwc
 
 ENCODER = (  # name, cin, cout, stride
     ("conv0", None, 64, 1),
@@ -30,6 +31,7 @@ ENCODER = (  # name, cin, cout, stride
 # level: (deconv input channels, deconv output channels, skip channels)
 DECODER = {5: (1024, 512, 512), 4: (1026, 256, 512), 3: (770, 128, 256), 2: (386, 64, 128)}
 SKIPS = {5: "conv5_1", 4: "conv4_1", 3: "conv3_1", 2: "conv2_1"}
+HEAD = ("conv0", "conv1")  # the full-resolution head
 
 
 class FlowNetSD(nn.Module):
@@ -50,7 +52,8 @@ class FlowNetSD(nn.Module):
         feats = {}
         out = x
         for name, *_ in ENCODER:
-            out = conv_block(getattr(self, name), out)
+            block = head_block if name in HEAD else conv_block
+            out = block(getattr(self, name), out)
             feats[name] = out
         flow = conv_block(self.predict_flow6, out, relu=False)
         flows = {"flow6": flow}

@@ -2,9 +2,13 @@
 
 Input (11 channels): img0 (3) + sd_flow (2) + css_flow (2) + their channel
 norms (1+1) + the two brightness-error magnitudes (1+1). Full resolution
-with two downsamplings; predict_flow0 is the final flow. The plain path of
-the JAX package only: its space-to-depth path and fused head kernel are
-TPU layout rewrites of the same function.
+with two downsamplings; predict_flow0 is the final flow. The six
+full-resolution layers (conv0, conv1, deconv0, upsample_flow1to0,
+inter_conv0, predict_flow0) go through ``head_block`` (the K3 kernel at
+wide inputs on the card). With ``fusion_head=True``, the counterpart of the
+JAX package's ``FLOWNET2_TPU_FUSION_HEAD=1``, the decoder head from
+inter_conv1 on runs as one ``ops.fusion_head.fusion_head`` call (the K4
+kernel on the card); default off, as there.
 """
 
 from __future__ import annotations
@@ -12,12 +16,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from flownet2_tpu_torch.models.common import conv, conv_block, deconv, to_nchw, to_nhwc
+from flownet2_tpu_torch.models.common import conv, conv_block, deconv, head_block, to_nchw, to_nhwc
+from flownet2_tpu_torch.ops import fusion_head as fusion_head_op
 
 
 class FlowNetFusion(nn.Module):
-    def __init__(self, in_channels: int = 11):
+    def __init__(self, in_channels: int = 11, *, fusion_head: bool = False):
         super().__init__()
+        self.fusion_head = fusion_head
         self.conv0 = conv(in_channels, 64, 3)
         self.conv1 = conv(64, 64, 3, 2)
         self.conv1_1 = conv(64, 128, 3)
@@ -37,22 +43,25 @@ class FlowNetFusion(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (N, 11, H, W) -> {"flow0", "flow1", "flow2"}, NCHW; flow0 is final."""
-        c0 = conv_block(self.conv0, x)
-        c1_1 = conv_block(self.conv1_1, conv_block(self.conv1, c0))
+        c0 = head_block(self.conv0, x)
+        c1_1 = conv_block(self.conv1_1, head_block(self.conv1, c0))
         c2_1 = conv_block(self.conv2_1, conv_block(self.conv2, c1_1))
         flow2 = conv_block(self.predict_flow2, c2_1, relu=False)
 
         up_feat1 = conv_block(self.deconv1, c2_1)
         up_flow1 = conv_block(self.upsample_flow2to1, flow2, relu=False)
         concat1 = torch.cat([c1_1, up_feat1, up_flow1], dim=1)
+        if self.fusion_head:
+            flow0, flow1 = fusion_head_op.fusion_head(concat1, c0, self)
+            return {"flow0": flow0, "flow1": flow1, "flow2": flow2}
         inter1 = conv_block(self.inter_conv1, concat1, relu=False)
         flow1 = conv_block(self.predict_flow1, inter1, relu=False)
 
-        up_feat0 = conv_block(self.deconv0, concat1)
-        up_flow0 = conv_block(self.upsample_flow1to0, flow1, relu=False)
+        up_feat0 = head_block(self.deconv0, concat1)
+        up_flow0 = head_block(self.upsample_flow1to0, flow1, relu=False)
         concat0 = torch.cat([c0, up_feat0, up_flow0], dim=1)
-        inter0 = conv_block(self.inter_conv0, concat0, relu=False)
-        flow0 = conv_block(self.predict_flow0, inter0, relu=False)
+        inter0 = head_block(self.inter_conv0, concat0, relu=False)
+        flow0 = head_block(self.predict_flow0, inter0, relu=False)
         return {"flow0": flow0, "flow1": flow1, "flow2": flow2}
 
 

@@ -7,8 +7,13 @@
 - ``losses``       — L1/EPE, Lpq and the multi-scale loss.
 - ``warp``         — FlowWarp: CUDA kernels (forward, backward) + plain PyTorch version.
 - ``correlation``  — cost volume: CUDA kernels (forward, backward) + plain PyTorch version.
+- ``head_conv``    — the full-resolution head convs and deconvs (bias, leaky
+                     fused): CUDA kernels + plain PyTorch versions, and the
+                     width routing.
+- ``fusion_head``  — the fusion net's decoder head in one CUDA launch + the
+                     plain composition of its layers.
 
-Convolutions and deconvolutions are ``F.conv2d`` / ``F.conv_transpose2d``
+Other convolutions and deconvolutions are ``F.conv2d`` / ``F.conv_transpose2d``
 (through ``nn.Conv2d`` / ``nn.ConvTranspose2d`` in the models).
 """
 

@@ -13,13 +13,14 @@ prints:
   union of the intervals of every kernel, copy and memset) and the device
   idle share, 1 - busy / wall;
 - the share of device busy time in each part of the slice (cuDNN conv and
-  deconv, the unfused bias add and leaky ReLU, the two hand kernels, and
+  deconv, the unfused bias add and leaky ReLU, the hand kernels, and
   cuDNN's layout transposes);
 - the profiler's ``key_averages()`` table, sorted by self device time.
 
     python3 scripts/profile_slice.py                      # 448x320 b8, f32 and bf16
     python3 scripts/profile_slice.py --out build/profile  # also write the full tables
     python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4   # Sintel size
+    python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4 --fusion-head
     python3 scripts/profile_slice.py --train              # train steps, 448x320 b8
 
 TF32 is off, as in chip_smoke.py. Imports neither jax nor the JAX package.
@@ -50,14 +51,16 @@ OP_PARTS = {
     "bias add_ (separate kernel)": ("aten::add_",),
     "leaky ReLU (where + ge)": ("aten::where", "aten::ge"),
 }
-# part of the slice -> substring of the device kernels' names
+# part of the slice -> substrings of the device kernels' names
 KERNEL_PARTS = {
-    "correlation kernel": "correlation_kernel",
-    "correlation backward kernel": "correlation_backward_kernel",
-    "flow_warp kernel": "flow_warp_kernel",
-    "flow_warp backward kernel": "flow_warp_backward_kernel",
-    "cuDNN NCHW->NHWC transposes": "nchwToNhwc",
-    "cuDNN NHWC->NCHW transposes": "nhwcToNchw",
+    "correlation kernel": ("correlation_kernel",),
+    "correlation backward kernel": ("correlation_backward_kernel",),
+    "flow_warp kernel": ("flow_warp_kernel",),
+    "flow_warp backward kernel": ("flow_warp_backward_kernel",),
+    "head_conv kernels (K3: conv and deconv)": ("head_conv_kernel", "head_deconv_kernel"),
+    "fusion_head kernel (K4)": ("fusion_head_kernel",),
+    "cuDNN NCHW->NHWC transposes": ("nchwToNhwc",),
+    "cuDNN NHWC->NCHW transposes": ("nhwcToNchw",),
 }
 
 
@@ -85,10 +88,10 @@ def parts_us(prof) -> dict[str, float]:
     out = {}
     for part, ops in OP_PARTS.items():
         out[part] = sum(r.self_device_time_total for r in rows if r.key in ops)
-    for part, pattern in KERNEL_PARTS.items():
+    for part, patterns in KERNEL_PARTS.items():
         out[part] = sum(
             e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == DeviceType.CUDA and pattern in e.name
+            if e.device_type == DeviceType.CUDA and any(p in e.name for p in patterns)
         )
     return out
 
@@ -132,9 +135,11 @@ def profile_dtype(args, dtype: str, dev: torch.device) -> str:
     from flownet2_tpu_torch.checkpoint import init_params
     from flownet2_tpu_torch.inference import FlowRunner
 
-    runner = FlowRunner("flownet2", init_params("flownet2", seed=SEED), device=dev, dtype=dtype)
+    runner = FlowRunner("flownet2", init_params("flownet2", seed=SEED), device=dev, dtype=dtype,
+                        fusion_head=args.fusion_head)
     i0, i1 = _images(args, dev)
-    return profile_run(args, dtype, lambda: runner.run(i0, i1))
+    label = f"{dtype} {args.width}x{args.height} b{args.batch}{' fused head' if args.fusion_head else ''}"
+    return profile_run(args, label, lambda: runner.run(i0, i1))
 
 
 def profile_train(args, objective: str, dev: torch.device) -> str:
@@ -163,6 +168,7 @@ def main(argv=None) -> int:
     p.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"], choices=["float32", "bfloat16"])
     p.add_argument("--out", default=None, help="directory for the full key_averages tables")
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
+    p.add_argument("--fusion-head", action="store_true", help="FlowNet2 with the fused fusion-net decoder head")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false; this needs a CUDA card")

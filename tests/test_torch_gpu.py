@@ -22,6 +22,16 @@ from flownet2_tpu_torch.ops.correlation import (
     correlation_cuda,
     correlation_plain,
 )
+from flownet2_tpu_torch.ops.fusion_head import fusion_head, fusion_head_cuda, fusion_head_plain, head_weights
+from flownet2_tpu_torch.ops.head_conv import (
+    head_conv2d,
+    head_conv2d_cuda,
+    head_conv2d_plain,
+    head_deconv2d,
+    head_deconv2d_cuda,
+    head_deconv2d_plain,
+    head_launches,
+)
 from flownet2_tpu_torch.ops.warp import (
     flow_warp,
     flow_warp_backward_cuda,
@@ -269,3 +279,174 @@ def test_train_step_on_card_uses_kernels_and_matches_cpu(cuda, case):
         np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
         whole, median = _grad_errors(grads, ref_grads)
         assert whole <= 1e-3 and median <= 1e-3, f"seed {seed}: relative L2 of all {whole:.3g}, median {median:.3g}"
+
+
+@pytest.fixture
+def no_tf32():
+    """cuDNN's float32 convs in full float32, as the plain versions need."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def _conv_inputs(device, dtype, x_shape, w_shape, seed, deconv=False):
+    """x, weight (OIHW, or (Cin, Cout, 4, 4) for a deconv) and bias, seeded."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(x_shape, generator=g)
+    weight = torch.randn(w_shape, generator=g) * 0.1
+    bias = torch.randn(w_shape[1] if deconv else w_shape[0], generator=g)
+    return tuple(t.to(device, dtype) for t in (x, weight, bias))
+
+
+HEAD_CONV_CASES = [  # k, stride, cin, cout, leaky: the nets' head geometries, and one masked Cout
+    (3, 1, 11, 64, True), (3, 1, 82, 16, False), (3, 1, 16, 2, False), (3, 2, 64, 64, True),
+    (7, 2, 3, 64, True), (7, 2, 12, 64, True), (3, 1, 6, 40, True),
+]
+DTYPE_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+
+
+@pytest.mark.parametrize("dtype,rel", DTYPE_TOLS)
+@pytest.mark.parametrize("k,stride,cin,cout,leaky", HEAD_CONV_CASES)
+def test_head_conv_kernel_matches_plain(cuda, no_tf32, k, stride, cin, cout, leaky, dtype, rel):
+    """K3's conv at ragged sizes (tiles cut at the right and bottom edges):
+    within rel * max|ref| of F.conv2d plus leaky on the same inputs."""
+    x, w, b = _conv_inputs(cuda, dtype, (2, cin, 37, 150), (cout, cin, k, k), seed=k * 100 + cin)
+    before = head_conv2d_cuda.launches
+    got = head_conv2d(x, w, b, stride=stride, leaky=leaky)
+    torch.cuda.synchronize()
+    assert head_conv2d_cuda.launches == before + 1
+    ref = head_conv2d_plain(x, w, b, stride=stride, leaky=leaky)
+    assert got.shape == ref.shape and got.dtype == dtype
+    _rel_close(got, ref, rel)
+
+
+@pytest.mark.parametrize("dtype,rel", DTYPE_TOLS)
+@pytest.mark.parametrize("cin,cout,leaky", [(162, 16, True), (2, 2, False), (5, 9, True)])
+def test_head_deconv_kernel_matches_plain(cuda, no_tf32, cin, cout, leaky, dtype, rel):
+    """K3's k4/s2 deconv (conv_transpose2d weights, all four phases)."""
+    x, w, b = _conv_inputs(cuda, dtype, (2, cin, 19, 70), (cin, cout, 4, 4), seed=cin, deconv=True)
+    before = head_deconv2d_cuda.launches
+    got = head_deconv2d(x, w, b, leaky=leaky)
+    torch.cuda.synchronize()
+    assert head_deconv2d_cuda.launches == before + 1
+    ref = head_deconv2d_plain(x, w, b, leaky=leaky)
+    assert got.shape == ref.shape == (2, cout, 38, 140) and got.dtype == dtype
+    _rel_close(got, ref, rel)
+
+
+def _fusion_net(device, dtype, seed=5):
+    """A fusion net with seeded weights and random biases."""
+    flat = init_params("flownet2", seed=seed)
+    rng = np.random.default_rng(seed)
+    for key in flat:
+        if key.startswith("fusion/") and key.endswith("/b"):
+            flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32) * 0.3
+    with torch.device("meta"):
+        net = FlowNet2()
+    return load_into(net, flat).fusion.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype,rel", DTYPE_TOLS)
+@pytest.mark.parametrize("shape", [(2, 21, 70), (1, 8, 16), (1, 40, 100)])
+def test_fusion_head_kernel_matches_plain(cuda, no_tf32, shape, dtype, rel):
+    """K4 in one launch against the six plain layers, on sizes that are not
+    tile multiples (the per-stage border masks show only at the edges)."""
+    n, h2, w2 = shape
+    net = _fusion_net(cuda, dtype)
+    g = torch.Generator().manual_seed(h2)
+    cat1 = torch.randn(n, 162, h2, w2, generator=g).to(cuda, dtype)
+    c0 = torch.randn(n, 64, 2 * h2, 2 * w2, generator=g).to(cuda, dtype)
+    before = fusion_head_cuda.launches
+    with torch.no_grad():
+        got = fusion_head(cat1, c0, net)
+        torch.cuda.synchronize()
+        assert fusion_head_cuda.launches == before + 1
+        ref = fusion_head_plain(cat1, c0, *head_weights(net))
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == dtype
+        _rel_close(a, r, rel)
+
+
+def test_head_autograd_matches_plain(cuda, no_tf32):
+    """Gradients through the K3 and K4 autograd Functions (backward:
+    autograd through the plain versions) equal autograd through the plain
+    versions, also after a forward under inference_mode."""
+    x, w, b = _conv_inputs(cuda, torch.float32, (2, 11, 20, 40), (64, 11, 3, 3), seed=1)
+    with torch.inference_mode():
+        head_conv2d(x, w, b, stride=1, leaky=True)
+    for fn, plain, args, kw in (
+        (head_conv2d, head_conv2d_plain, (x, w, b), dict(stride=2, leaky=True)),
+        (head_deconv2d, head_deconv2d_plain,
+         _conv_inputs(cuda, torch.float32, (2, 6, 9, 12), (6, 4, 4, 4), seed=2, deconv=True), dict(leaky=True)),
+    ):
+        a = [t.clone().requires_grad_(True) for t in args]
+        got = torch.autograd.grad(fn(*a, **kw).square().sum(), a)
+        p = [t.clone().requires_grad_(True) for t in args]
+        ref = torch.autograd.grad(plain(*p, **kw).square().sum(), p)
+        for x_, r_ in zip(got, ref):
+            _rel_close(x_, r_, 1e-5)
+
+    net = _fusion_net(cuda, torch.float32)
+    g = torch.Generator().manual_seed(3)
+    cat1 = torch.randn(1, 162, 10, 12, generator=g).to(cuda).requires_grad_(True)
+    c0 = torch.randn(1, 64, 20, 24, generator=g).to(cuda).requires_grad_(True)
+    f0, f1 = fusion_head(cat1, c0, net)
+    got = torch.autograd.grad(f0.square().sum() + f1.sum(), [cat1, c0, net.inter_conv0.weight])
+    r0, r1 = fusion_head_plain(cat1, c0, *head_weights(net))
+    ref = torch.autograd.grad(r0.square().sum() + r1.sum(), [cat1, c0, net.inter_conv0.weight])
+    for x_, r_ in zip(got, ref):
+        _rel_close(x_, r_, 1e-5)
+
+
+def test_head_wrappers_raise_on_what_they_do_not_take(cuda):
+    x, w, b = _conv_inputs(cuda, torch.float32, (1, 3, 8, 8), (64, 3, 7, 7), seed=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        head_conv2d_cuda(x.cpu(), w, b, stride=2, leaky=True)
+    with pytest.raises(TypeError):
+        head_conv2d_cuda(x.half(), w.half(), b.half(), stride=2, leaky=True)
+    with pytest.raises(TypeError):
+        head_conv2d_cuda(x.bfloat16(), w, b, stride=2, leaky=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        head_conv2d_cuda(x.transpose(2, 3), w, b, stride=2, leaky=True)
+    with pytest.raises(ValueError, match="covers"):
+        head_conv2d_cuda(x, w, b, stride=1, leaky=True)  # 7x7 stride 1
+    with pytest.raises(ValueError, match="covers"):
+        head_conv2d_cuda(x, torch.zeros(65, 3, 3, 3, device=cuda), torch.zeros(65, device=cuda), stride=1,
+                         leaky=False)
+    dx, dw, db = _conv_inputs(cuda, torch.float32, (1, 4, 8, 8), (4, 17, 4, 4), seed=0, deconv=True)
+    with pytest.raises(ValueError, match="covers"):
+        head_deconv2d_cuda(dx, dw, db, leaky=False)  # Cout 17
+    with pytest.raises(ValueError, match="contiguous"):
+        head_deconv2d_cuda(dx.transpose(2, 3), dw[:, :4].contiguous(), db[:4], leaky=False)
+    net = _fusion_net(cuda, torch.float32)
+    cat1, c0 = torch.zeros(1, 162, 4, 4, device=cuda), torch.zeros(1, 64, 8, 8, device=cuda)
+    weights = head_weights(net)
+    with pytest.raises(ValueError, match="CUDA"):
+        fusion_head_cuda(cat1.cpu(), c0, *weights)
+    with pytest.raises(TypeError):
+        fusion_head_cuda(cat1.bfloat16(), c0.bfloat16(), *weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        fusion_head_cuda(cat1.transpose(2, 3), c0, *weights)
+    with pytest.raises(ValueError, match="does not fit"):
+        fusion_head_cuda(cat1, c0[:, :, :6].contiguous(), *weights)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused-head"])
+def test_flownet2_wide_on_card_uses_head_kernels_and_matches_cpu(cuda, no_tf32, fused):
+    """At 64x576 (full-resolution width above 512) one float32 FlowNet2
+    forward launches K3 12 times (8 with the fused head, plus K4 once),
+    matches the port on the CPU to mean EPE <= 1e-2 px, and the fused head
+    matches the unfused forward on the card to 1e-3 px."""
+    params = init_params("flownet2", seed=0)
+    rng = np.random.default_rng(1)
+    i0, i1 = (rng.uniform(0, 255, (2, 64, 576, 3)).astype(np.float32) for _ in range(2))
+    runner = FlowRunner("flownet2", params, device=cuda, fusion_head=fused)
+    k3, k4 = head_launches(), fusion_head_cuda.launches
+    got = runner.batch(i0, i1)
+    assert (head_launches() - k3, fusion_head_cuda.launches - k4) == ((8, 1) if fused else (12, 0))
+    ref = FlowRunner("flownet2", params, device="cpu").batch(i0, i1)
+    assert float(np.sqrt(((got - ref) ** 2).sum(-1)).mean()) <= 1e-2
+    if fused:
+        unfused = FlowRunner("flownet2", params, device=cuda).batch(i0, i1)
+        assert float(np.sqrt(((got - unfused) ** 2).sum(-1)).mean()) <= 1e-3

@@ -1,0 +1,331 @@
+"""The port's head convolutions (K3's counterpart), fused fusion-net decoder
+head (K4's), their routing, and run_flownet_many, against the JAX package
+on the CPU.
+
+Inputs and weights are numpy arrays from a seed, handed to both packages.
+The JAX package's Pallas kernels run in interpret mode, as
+tests/test_pallas.py runs them; on CPU tensors the port runs its plain
+versions (the CUDA kernels are held against those on the card in
+tests/test_torch_gpu.py). Tolerances are atol 1e-4 in float32 (XLA's and
+PyTorch's conv sums differ in order) and mean EPE 1e-3 px for whole nets.
+"""
+
+import os
+import subprocess
+import sys
+from unittest import mock
+
+import jax
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flownet2_tpu.ops.pallas.s2d_conv as jax_s2d_conv
+from flownet2_tpu.checkpoint import save_params, unflatten_params
+from flownet2_tpu.cli.run_flownet_many import main as jax_many_main
+from flownet2_tpu.core.flow_io import read_flo, write_ppm
+from flownet2_tpu.inference import FlowRunner as JaxFlowRunner
+from flownet2_tpu.models import flownet2_init
+from flownet2_tpu.ops import s2d as jax_s2d
+from flownet2_tpu.ops.activations import leaky_relu as jax_leaky_relu
+from flownet2_tpu.ops.pallas.fusion_head import build_fusion_head_weights, fusion_head_pallas
+from flownet2_tpu_torch import checkpoint
+from flownet2_tpu_torch.cli.run_flownet_many import main as many_main
+from flownet2_tpu_torch.inference import FlowRunner
+from flownet2_tpu_torch.models import FlowNet2, flownet2_apply
+from flownet2_tpu_torch.ops import fusion_head as fusion_head_op
+from flownet2_tpu_torch.ops import head_conv
+from flownet2_tpu_torch.ops.fusion_head import fusion_head, fusion_head_cuda
+from flownet2_tpu_torch.ops.head_conv import (
+    head_conv2d,
+    head_conv2d_cuda,
+    head_deconv2d,
+    head_deconv2d_cuda,
+    use_head_kernel,
+)
+
+torch.set_num_threads(2)  # the suite runs several workers side by side
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOL = 1e-4
+
+
+def nchw(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
+
+
+def nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+def _interpret(*args, **kwargs):
+    kwargs["interpret"] = True
+    return _PALLAS_CALL(*args, **kwargs)
+
+
+_PALLAS_CALL = pl.pallas_call
+
+
+def _epe(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
+
+
+# -- K3: the head convs --------------------------------------------------------
+
+
+@pytest.mark.parametrize("leaky", [False, True], ids=["linear", "leaky"])
+@pytest.mark.parametrize(
+    "k,stride,cin,cout",
+    [(3, 1, 11, 64), (3, 1, 82, 16), (3, 1, 16, 2), (3, 2, 64, 64), (7, 2, 3, 64), (7, 2, 12, 64)],
+    ids=["3x3s1-11-64", "3x3s1-82-16", "3x3s1-16-2", "3x3s2-64-64", "7x7s2-3-64", "7x7s2-12-64"],
+)
+def test_head_conv2d_matches_jax_s2d_kernel(rng, k, stride, cin, cout, leaky):
+    """head_conv2d (plain NCHW) against the JAX package's s2d conv through
+    its Pallas kernel (interpret mode) and through its XLA formulation."""
+    x = rng.standard_normal((2, 18, 26, cin)).astype(np.float32)
+    w = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32)
+    x2 = jax_s2d.space_to_depth(jnp.asarray(x))
+    with mock.patch.object(jax_s2d_conv.pl, "pallas_call", _interpret):
+        routed = jax_s2d._conv2d_s2d_routed(x2, jnp.asarray(w), jnp.asarray(b), stride, None)
+    impl = jax_s2d._conv2d_s2d_impl(x2, jnp.asarray(w), jnp.asarray(b), stride=stride)
+    got = nhwc(head_conv2d(nchw(x), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), torch.from_numpy(b),
+                           stride=stride, leaky=leaky))
+    for ref in (routed, impl):
+        ref = jax_s2d.depth_to_space(ref) if stride == 1 else ref
+        ref = np.asarray(jax_leaky_relu(ref) if leaky else ref)
+        assert got.shape == ref.shape == (2, 18 // stride, 26 // stride, cout)
+        np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("leaky", [False, True], ids=["linear", "leaky"])
+@pytest.mark.parametrize("cin,cout", [(162, 16), (2, 2)])
+def test_head_deconv2d_matches_jax_s2d_kernel(rng, cin, cout, leaky):
+    """head_deconv2d (conv_transpose2d weights) against the JAX s2d deconv
+    (Pallas kernel in interpret mode, and the XLA formulation)."""
+    x = rng.standard_normal((2, 9, 13, cin)).astype(np.float32)
+    w = (rng.standard_normal((4, 4, cout, cin)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32)
+    with mock.patch.object(jax_s2d_conv.pl, "pallas_call", _interpret):
+        routed = jax_s2d._deconv2d_s2d_routed(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    impl = jax_s2d._deconv2d_s2d_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    got = nhwc(head_deconv2d(nchw(x), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), torch.from_numpy(b),
+                             leaky=leaky))
+    for ref in (routed, impl):
+        ref = jax_s2d.depth_to_space(ref)
+        ref = np.asarray(jax_leaky_relu(ref) if leaky else ref)
+        assert got.shape == ref.shape == (2, 18, 26, cout)
+        np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_head_cuda_wrappers_refuse_cpu_tensors():
+    x, w, b = torch.zeros(1, 3, 8, 8), torch.zeros(64, 3, 7, 7), torch.zeros(64)
+    before = head_conv2d_cuda.launches, head_deconv2d_cuda.launches, fusion_head_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        head_conv2d_cuda(x, w, b, stride=2, leaky=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        head_deconv2d_cuda(x, torch.zeros(3, 2, 4, 4), torch.zeros(2), leaky=False)
+    net = FlowNet2().fusion
+    with pytest.raises(ValueError, match="CUDA"):
+        fusion_head_cuda(torch.zeros(1, 162, 4, 4), torch.zeros(1, 64, 8, 8), *fusion_head_op.head_weights(net))
+    assert (head_conv2d_cuda.launches, head_deconv2d_cuda.launches, fusion_head_cuda.launches) == before
+
+
+# -- K4: the fused fusion-net decoder head -----------------------------------
+
+
+def _fusion_weights(seed: int):
+    """Seeded FlowNet2 weights with random biases: (flat JAX-layout dict,
+    the JAX fusion pytree, the port's fusion net)."""
+    flat = checkpoint.init_params("flownet2", seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    for key in flat:
+        if key.startswith("fusion/") and key.endswith("/b"):
+            flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32) * 0.3
+    with torch.device("meta"):
+        net = FlowNet2()
+    checkpoint.load_into(net, flat)
+    return flat, unflatten_params(flat)["fusion"], net.fusion
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 56), (1, 17, 130)])
+def test_fusion_head_matches_jax_kernel_and_xla(rng, shape):
+    """fusion_head (plain composition) against fusion_head_pallas (interpret)
+    and _fusion_head_xla, borders included: half-resolution shapes as in
+    tests/test_pallas.py, one of them not a multiple of any tile."""
+    b, h2, w2 = shape
+    _, p, net = _fusion_weights(seed=1)
+    cat1 = rng.normal(0, 1, (b, h2, w2, 162)).astype(np.float32)
+    c0 = rng.normal(0, 1, (b, 2 * h2, 2 * w2, 64)).astype(np.float32)
+    c0_2 = jax_s2d.space_to_depth(jnp.asarray(c0))
+    with torch.no_grad():
+        flow0, flow1 = fusion_head(nchw(cat1), nchw(c0), net)
+    kernel0, kernel1 = fusion_head_pallas(jnp.asarray(cat1), c0_2, build_fusion_head_weights(p, jnp.float32),
+                                          interpret=True)
+    xla0, xla1 = jax_s2d._fusion_head_xla(jnp.asarray(cat1), c0_2, p)
+    for ref0, ref1 in ((kernel0, kernel1), (xla0, xla1)):
+        np.testing.assert_allclose(nhwc(flow0), np.asarray(jax_s2d.depth_to_space(ref0)), atol=ATOL)
+        np.testing.assert_allclose(nhwc(flow1), np.asarray(ref1), atol=ATOL)
+
+
+def test_flow_runner_fusion_head_matches_jax():
+    """FlowNet2 with the fused head, through FlowRunner on the CPU, against
+    the JAX FlowRunner at 100x150 (adapted to 128x192): mean EPE <= 1e-3 px."""
+    flat, _, _ = _fusion_weights(seed=4)
+    rng = np.random.default_rng(5)
+    i0, i1 = (rng.uniform(0, 255, (2, 100, 150, 3)).astype(np.float32) for _ in range(2))
+    ref = JaxFlowRunner("flownet2", unflatten_params(flat)).batch(i0, i1)
+    runner = FlowRunner("flownet2", flat, device="cpu", fusion_head=True)
+    assert runner.net.fusion.fusion_head
+    got = runner.batch(i0, i1)
+    assert got.shape == ref.shape == (2, 100, 150, 2)
+    assert _epe(got, ref) <= 1e-3
+    with pytest.raises(ValueError, match="flownet2"):
+        FlowRunner("flownetc", checkpoint.init_params("flownetc"), device="cpu", fusion_head=True)
+
+
+def test_fusion_head_option_keeps_the_weight_bridge():
+    """FlowNet2(fusion_head=True) has the same state_dict as FlowNet2(), and
+    both carry the JAX package's FlowNet2 parameter tree, key for key and
+    shape for shape, through checkpoint's bridge."""
+    jax_flat = {k: v.shape for k, v in checkpoint.flatten_params(flownet2_init(jax.random.PRNGKey(0))).items()}
+    for fused in (False, True):
+        with torch.device("meta"):
+            net = FlowNet2(fusion_head=fused)
+        bridged = checkpoint.params_from_state_dict(
+            {k: torch.zeros(v.shape) for k, v in net.state_dict().items()})
+        assert {k: v.shape for k, v in bridged.items()} == jax_flat
+
+
+# -- routing --------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "device,width,expected",
+    [("cuda", 1024, True), ("cuda", 513, True), ("cuda", 512, False), ("cuda", 448, False),
+     ("cpu", 1024, False), ("meta", 1024, False)],
+)
+def test_use_head_kernel_is_a_function_of_device_and_width(device, width, expected):
+    """The K3 route: CUDA and full-resolution width > 512 (the JAX s2d width
+    > 256, flownet2_tpu/ops/s2d.py:283-298)."""
+    assert use_head_kernel(device, width) is expected
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused-head"])
+def test_flownet2_forward_routes_exactly_the_head_layers(monkeypatch, fused):
+    """One FlowNet2 forward asks the routing 12 times (C conv1 per tower, S1
+    and S2 conv1, SD conv0 and conv1, fusion conv0, conv1, deconv0,
+    upsample_flow1to0, inter_conv0, predict_flow0), or 8 times plus one
+    fused head. With the route forced to the kernel path (plain versions on
+    the CPU), the flow is the one the layers' own modules give."""
+    asked, heads = [], []
+    real_head = fusion_head_op.fusion_head
+    monkeypatch.setattr(fusion_head_op, "fusion_head", lambda *a: heads.append(1) or real_head(*a))
+    flat = checkpoint.init_params("flownet2", seed=2)
+    with torch.device("meta"):
+        net = FlowNet2(fusion_head=fused)
+    checkpoint.load_into(net, flat)
+    rng = np.random.default_rng(8)
+    i0, i1 = (torch.from_numpy(rng.uniform(0, 255, (1, 64, 128, 3)).astype(np.float32)) for _ in range(2))
+    with torch.no_grad():
+        ref = flownet2_apply(net, i0, i1).numpy()
+        monkeypatch.setattr(head_conv, "use_head_kernel", lambda device, width: asked.append(width) or True)
+        got = flownet2_apply(net, i0, i1).numpy()
+    assert len(asked) == (8 if fused else 12) and len(heads) == 2 * fused
+    assert sorted(set(asked)) == [128]  # every routed layer is full resolution
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+# -- run_flownet_many -------------------------------------------------------------
+
+
+@pytest.fixture
+def many_jobs(tmp_path):
+    """Two jobs of different resolutions (70x90 and 100x130), as list files
+    naming separate outputs for the JAX and the port's CLI."""
+    rng = np.random.default_rng(21)
+    lines = {"jax": [], "torch": []}
+    for j, (h, w) in enumerate([(70, 90), (100, 130)]):
+        pair = []
+        for i in range(2):
+            p = tmp_path / f"job{j}_img{i}.ppm"
+            write_ppm(p, rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            pair.append(str(p))
+        for side in lines:
+            lines[side].append(f"{pair[0]} {pair[1]} {tmp_path / f'{side}{j}.flo'}")
+    lists = {}
+    for side, ls in lines.items():
+        lists[side] = tmp_path / f"{side}.txt"
+        lists[side].write_text("\n".join(ls) + "\n\n")
+    return tmp_path, lists
+
+
+def test_run_flownet_many_matches_jax(many_jobs):
+    """Same .npz, same list of two resolutions: every .flo agrees with the
+    JAX CLI's to mean EPE <= 1e-3 px (float32 on both sides)."""
+    tmp, lists = many_jobs
+    npz = str(tmp / "w.npz")
+    save_params(npz, checkpoint.init_params("flownetc", seed=3))
+    assert jax_many_main([npz, "flownetc", str(lists["jax"])]) == 0
+    assert many_main([npz, "flownetc", str(lists["torch"]), "--device", "cpu"]) == 0
+    for j, shape in enumerate([(70, 90, 2), (100, 130, 2)]):
+        a, b = read_flo(tmp / f"jax{j}.flo"), read_flo(tmp / f"torch{j}.flo")
+        assert a.shape == b.shape == shape
+        assert _epe(a, b) <= 1e-3
+
+
+_NO_JAX = """
+import importlib.abc, sys
+
+BLOCKED = ("jax", "flownet2_tpu")
+
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+class BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if blocked(name):
+            raise ImportError(f"{name} is blocked in this process")
+
+sys.meta_path.insert(0, BlockJax())
+import flownet2_tpu_torch.ops.head_conv, flownet2_tpu_torch.ops.fusion_head
+from flownet2_tpu_torch.cli.run_flownet_many import main
+rc = main(sys.argv[1:])
+assert not [m for m in sys.modules if blocked(m)]
+print("ran without jax, rc", rc)
+"""
+
+
+def test_run_flownet_many_runs_without_jax(many_jobs):
+    """The port's run_flownet_many imports neither jax nor the JAX package."""
+    tmp, lists = many_jobs
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["OMP_NUM_THREADS"] = "2"
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, "random", "flownets", str(lists["torch"]), "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ran without jax, rc 0" in proc.stdout
+    for j, shape in enumerate([(70, 90, 2), (100, 130, 2)]):
+        flow = read_flo(tmp / f"torch{j}.flo")
+        assert flow.shape == shape and np.isfinite(flow).all()
+
+
+def test_run_flownet_many_without_card_refuses_to_fall_back(monkeypatch, many_jobs):
+    tmp, lists = many_jobs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        many_main(["random", "flownets", str(lists["torch"])])
+    assert not (tmp / "torch0.flo").exists()
+
+
+def test_run_flownet_many_rejects_bad_list_lines(tmp_path):
+    bad = tmp_path / "bad.txt"
+    bad.write_text("a.ppm b.ppm\n")
+    with pytest.raises(SystemExit, match="expected 'img0 img1 out.flo'"):
+        many_main(["random", "flownets", str(bad), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="list file does not exist"):
+        many_main(["random", "flownets", str(tmp_path / "missing.txt"), "--device", "cpu"])
