@@ -26,7 +26,9 @@ and times the nets, the train steps and each kernel with CUDA events.
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Every phase raises on failure. Standard output ends with two JSON lines:
+[build] also counts the tensor-core (HMMA) instructions in the head-conv
+kernels' SASS and fails at 0. Every phase raises on failure. Standard
+output ends with two JSON lines:
 the kernels (name, route, source, the TPU kernel it replaces, launches in
 its path's run, max abs error against the plain version, ms beside the
 plain version's ms, the bound the card's peaks set for the same work and
@@ -58,8 +60,8 @@ CORR_SHAPE = (N, 256, H // 8, W // 8)  # FlowNetC's conv3 features at 448x320
 SINTEL_N, SINTEL_FRAME = 4, (436, 1024)  # Sintel frames; FlowRunner adapts them to 448x1024
 SINTEL_H, SINTEL_W = 448, 1024
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores, and device memory
-PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# tensor cores, dense bfloat16 on the tensor cores, and device memory
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -83,11 +85,11 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 9) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the memory rate
-    and the float32 operations over the float32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    and the operations over the peak for their type (float32 unless given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -115,6 +117,28 @@ def phase_build() -> None:
     for line in info.log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
+    counts = head_hmma_counts(info.path)
+    print(f"[build] cuobjdump -sass: {sum(counts.values())} HMMA instructions in the head-conv kernels "
+          f"({sum(c > 0 for c in counts.values())} of {len(counts)} kernels use the tensor cores)")
+    check(sum(counts.values()) > 0, "no HMMA instruction in the head-conv kernels' SASS")
+
+
+def head_hmma_counts(lib) -> dict:
+    """Tensor-core (HMMA) instructions per head-conv kernel (K3, both
+    routes) in the built library's SASS."""
+    from flownet2_tpu_torch import _build
+
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "head_conv" in fn or "head_deconv" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def _warp_inputs(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -298,13 +322,16 @@ HEAD_GEOMETRIES = (
 )
 # limits on the kernels' max abs error against the plain versions, times max|ref|
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# bytes per element and peak operations per second of each type
+DTYPE_PEAKS = {torch.float32: (4, PEAK_F32_FLOPS), torch.bfloat16: (2, PEAK_BF16_FLOPS)}
 
 
 def phase_head_kernels(dev: torch.device, card: str) -> dict:
     """K3 at each Sintel b4 geometry and K4 at Sintel b4 against their plain
     versions (float32 and bfloat16), with times beside the plain versions,
-    the cuDNN calls and the bounds. The head_conv entry sums one forward's
-    twelve launches; its error is the worst of the float32 checks."""
+    the cuDNN calls and the bounds. K3's entries, head_conv (float32, CUDA
+    cores) and head_conv_bf16 (tensor cores), sum one forward's twelve
+    launches; each one's error is the worst of its type's checks."""
     import torch.nn.functional as F
 
     from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda, fusion_head_plain, head_weights
@@ -313,8 +340,9 @@ def phase_head_kernels(dev: torch.device, card: str) -> dict:
     )
 
     g = torch.Generator().manual_seed(SEED + 5)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0)
-    worst = 0.0
+    totals = {dtype: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0.0, flops=0.0)
+              for dtype in DTYPE_PEAKS}
+    worst = dict.fromkeys(DTYPE_PEAKS, 0.0)
     for label, x_shape, w_shape, stride, leaky, count in HEAD_GEOMETRIES:
         deconv = stride == 0
         x32 = torch.randn(x_shape, generator=g).to(dev)
@@ -323,11 +351,11 @@ def phase_head_kernels(dev: torch.device, card: str) -> dict:
         if deconv:
             kernel = lambda x, w, b: head_deconv2d_cuda(x, w, b, leaky=leaky)  # noqa: E731
             plain = lambda x, w, b: head_deconv2d_plain(x, w, b, leaky=leaky)  # noqa: E731
-            library = lambda: F.conv_transpose2d(x32, w32, b32, stride=2, padding=1)  # noqa: E731
+            library = lambda x, w, b: F.conv_transpose2d(x, w, b, stride=2, padding=1)  # noqa: E731
         else:
             kernel = lambda x, w, b: head_conv2d_cuda(x, w, b, stride=stride, leaky=leaky)  # noqa: E731
             plain = lambda x, w, b: head_conv2d_plain(x, w, b, stride=stride, leaky=leaky)  # noqa: E731
-            library = lambda: F.conv2d(x32, w32, b32, stride=stride, padding=w_shape[-1] // 2)  # noqa: E731
+            library = lambda x, w, b: F.conv2d(x, w, b, stride=stride, padding=w_shape[-1] // 2)  # noqa: E731
         errs = []
         for dtype, rel in REL_TOL.items():
             args = tuple(t.to(dtype) for t in (x32, w32, b32))
@@ -339,36 +367,42 @@ def phase_head_kernels(dev: torch.device, card: str) -> dict:
             err, top = abs_err_and_scale(got, ref)
             check(err <= rel * top, f"head_conv {label} {dtype}: max abs err {err} > {rel * top}")
             errs.append(f"{str(dtype)[6:]} {err:.3g} (tol {rel * top:.3g})")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-                out_numel = got.numel()
+            worst[dtype] = max(worst[dtype], err)
+            out_numel = got.numel()
             del got, ref, args
-        ms = cuda_ms(lambda: kernel(x32, w32, b32))
-        plain_ms = cuda_ms(lambda: plain(x32, w32, b32))
-        library_ms = cuda_ms(library)
+        print(f"[kernels] head_conv {label}, x {tuple(x_shape)}: max abs err {'; '.join(errs)}")
         cout, cin = (w_shape[1], w_shape[0]) if deconv else w_shape[:2]
         taps = 4 if deconv else w_shape[2] * w_shape[3]
         flops = 2 * out_numel * cin * taps
-        nbytes = 4 * (x32.numel() + w32.numel() + b32.numel() + out_numel)
-        b = bound(nbytes, flops)
-        print(f"[kernels] head_conv {label}, x {tuple(x_shape)}: max abs err {'; '.join(errs)}; f32 kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN call {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
-              f"{flops / ms / 1e9:.2f} TFLOP/s; {count} per forward ({card})")
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                       ("bound_ms", b["bound_ms"]), ("bytes", nbytes), ("flops", flops)):
-            totals[key] += count * v
+        for dtype, (size, peak) in DTYPE_PEAKS.items():
+            args = tuple(t.to(dtype) for t in (x32, w32, b32))
+            ms = cuda_ms(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            library_ms = cuda_ms(lambda: library(*args))
+            nbytes = size * (x32.numel() + w32.numel() + b32.numel() + out_numel)
+            b = bound(nbytes, flops, peak)
+            print(f"[kernels]   {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN call "
+                  f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s; {count} per forward ({card})")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("bound_ms", b["bound_ms"]), ("bytes", nbytes), ("flops", flops)):
+                totals[dtype][key] += count * v
+            del args
         del x32, w32, b32
         torch.cuda.empty_cache()
-    print(f"[kernels] head_conv, one Sintel b4 forward's 12 launches, f32: kernel {totals['ms']:.4f} ms, plain "
-          f"{totals['plain_ms']:.4f} ms, cuDNN calls {totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} "
-          f"ms ({totals['flops'] / 1e9:.1f} GFLOP, {totals['bytes'] / 1e9:.2f} GB) ({card})")
-    results = {"head_conv": dict(
-        name="head_conv", route="cuda", source="flownet2_tpu_torch/csrc/head_conv.cu",
-        replaces="flownet2_tpu/ops/pallas/s2d_conv.py:153", max_abs_err=worst, ms=totals["ms"],
-        plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
-        bound_by=bound(totals["bytes"], totals["flops"])["bound_by"], library_ms=totals["library_ms"],
-    )}
+    results = {}
+    for dtype, name, source in ((torch.float32, "head_conv", "head_conv.cu"),
+                                (torch.bfloat16, "head_conv_bf16", "head_conv_tc.cu")):
+        t = totals[dtype]
+        print(f"[kernels] {name}, one Sintel b4 forward's 12 launches, {str(dtype)[6:]}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, cuDNN calls {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['flops'] / 1e9:.1f} GFLOP, {t['bytes'] / 1e9:.2f} GB) ({card})")
+        results[name] = dict(
+            name=name, route="cuda", source=f"flownet2_tpu_torch/csrc/{source}",
+            replaces="flownet2_tpu/ops/pallas/s2d_conv.py:153", max_abs_err=worst[dtype], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=bound(t["bytes"], t["flops"], DTYPE_PEAKS[dtype][1])["bound_by"], library_ms=t["library_ms"],
+        )
 
     # K4 at Sintel b4: concat1 (N, 162, H/2, W/2) and c0 (N, 64, H, W)
     from flownet2_tpu_torch.checkpoint import init_params, load_into
@@ -553,6 +587,8 @@ def phase_sintel(dev: torch.device, card: str, kernels: dict) -> dict:
             check(flow.shape == (SINTEL_N, fh, fw, 2) and np.isfinite(flow).all(), f"{label}: flow shape, finiteness")
             if label == "f32":
                 kernels["head_conv"]["launches"] = got["head_conv"]
+            if label == "bf16":
+                kernels["head_conv_bf16"]["launches"] = got["head_conv"]
             if label == "f32 fused head":
                 kernels["fusion_head"]["launches"] = got["fusion_head"]
 
@@ -782,7 +818,8 @@ def main() -> int:
     phase_slice(dev, smi, kernels)
     phase_sintel(dev, smi, kernels)
     phase_train(dev, smi, kernels)
-    order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "fusion_head")
+    order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",
+             "fusion_head")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -28,8 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "flownet2_tpu_torch"
 SOURCES = (
-    "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "head_conv.cu", "fusion_head.cu",
-    "status.cu",
+    "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "head_conv.cu", "head_conv_tc.cu",
+    "fusion_head.cu", "status.cu",
 )
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -52,9 +52,10 @@ _SIGNATURES = {
     # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement,
     # stride2, dtype, stream
     "fn2_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, weight, bias, out, n, cin, h, w, cout, k, stride, leaky, dtype, stream
+    # x, weight (bf16: packed by ops/head_conv.pack_head_weight), bias, out, n, cin, h, w,
+    # cout, k, stride, leaky, dtype, stream
     "fn2_head_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, weight, bias, out, n, cin, h, w, cout, leaky, dtype, stream
+    # x, weight (bf16: packed), bias, out, n, cin, h, w, cout, leaky, dtype, stream
     "fn2_head_deconv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # concat1, c0, then weight and bias of inter_conv1, predict_flow1, deconv0,
     # upsample_flow1to0, inter_conv0, predict_flow0, flow0, flow1, n, h2, w2, dtype, stream
@@ -69,16 +70,17 @@ class BuildInfo:
     log: str  # nvcc's output, including -Xptxas -v's registers and spills
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     candidates = [
-        os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc") if "CUDA_HOME" in os.environ else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
+        os.path.join(os.environ["CUDA_HOME"], "bin", name) if "CUDA_HOME" in os.environ else None,
+        shutil.which(name),
+        f"/usr/local/cuda/bin/{name}",
     ]
     for c in candidates:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on PATH)")
 
 
 def _digest() -> str:
@@ -105,7 +107,7 @@ def build() -> BuildInfo:
     tmp = lib.with_name(f"{lib.name}.{tag}")
     # nvcc tells inputs by their suffix: the objects must end in .o
     objs = [BUILD_DIR / f"{Path(s).stem}_{digest}.{tag}.o" for s in SOURCES]
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     t0 = time.perf_counter()
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],

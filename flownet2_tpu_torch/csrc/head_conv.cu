@@ -9,15 +9,19 @@
 // TPU's 128-lane matrix unit; here the same function is computed directly
 // in the plain NCHW layout.
 //
-// Layouts (all contiguous): x (N, Cin, H, W); conv weight (Cout, Cin, k, k)
-// (OIHW, nn.Conv2d); deconv weight (Cin, Cout, 4, 4) (nn.ConvTranspose2d);
-// bias (Cout); out (N, Cout, Ho, Wo). float32 or bfloat16, one type for all;
-// sums in float32, one rounding to the output type after bias and leaky.
+// Two routes behind the same entry points: float32 runs the CUDA-core
+// kernels below; bfloat16 runs the tensor-core implicit GEMM of
+// head_conv_tc.cu, which takes the weight packed by
+// ops/head_conv.py::pack_head_weight.
 //
-// Design. One block of 256 threads computes an output tile for all Cout
+// Float32 layouts (all contiguous): x (N, Cin, H, W); conv weight
+// (Cout, Cin, k, k) (OIHW, nn.Conv2d); deconv weight (Cin, Cout, 4, 4)
+// (nn.ConvTranspose2d); bias (Cout); out (N, Cout, Ho, Wo). Sums in float32.
+//
+// Design of the float32 route. One block of 256 threads computes an output tile for all Cout
 // (<= 64) of one image. Per chunk of CK input channels, the input patch with
 // its halo (zero outside the image: the conv's padding) and the chunk's
-// weights are staged in shared memory as float32, weights as
+// weights are staged in shared memory, weights as
 // [ci][tap][cout]. A warp covers 32 neighbouring output columns of one row
 // and one group of output channels, so its weight loads are broadcasts and
 // its input loads are consecutive addresses. Each thread keeps PX pixels
@@ -78,10 +82,10 @@ struct ConvGeom {
   static constexpr size_t SMEM = (W_FLOATS + X_FLOATS) * sizeof(float);
 };
 
-template <typename T, int K, int S, int COB, int G, int PX, int CK>
+template <int K, int S, int COB, int G, int PX, int CK>
 __global__ void __launch_bounds__(kThreads)
-head_conv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T* __restrict__ bias,
-                 T* __restrict__ out, int cin, int h, int w, int cout, int ho, int wo, bool leaky) {
+head_conv_kernel(const float* __restrict__ x, const float* __restrict__ weight, const float* __restrict__ bias,
+                 float* __restrict__ out, int cin, int h, int w, int cout, int ho, int wo, bool leaky) {
   using Geo = ConvGeom<K, S, COB, G, PX, CK>;
   constexpr int CO = Geo::CO, TY = Geo::TY, TW = Geo::TW, IR = Geo::IR, IC = Geo::IC;
   extern __shared__ float4 smem4[];
@@ -98,7 +102,7 @@ head_conv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T*
   const int iy0 = oy0 * S - K / 2;
   const int ix0 = ox0 * S - K / 2;
   const long long hw = static_cast<long long>(h) * w;
-  const T* xb = x + static_cast<long long>(b) * cin * hw;
+  const float* xb = x + static_cast<long long>(b) * cin * hw;
 
   float acc[PX][CO];
 #pragma unroll
@@ -115,7 +119,7 @@ head_conv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T*
       const int gy = iy0 + r, gx = ix0 + c;
       float v = 0.f;
       if (c0 + ci < cin && gy >= 0 && gy < h && gx >= 0 && gx < w)
-        v = to_f32(xb[(c0 + ci) * hw + static_cast<long long>(gy) * w + gx]);
+        v = xb[(c0 + ci) * hw + static_cast<long long>(gy) * w + gx];
       xs[i] = v;
     }
     for (int i = tid; i < Geo::W_FLOATS; i += kThreads) {
@@ -124,7 +128,7 @@ head_conv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T*
       const int ci = i / (COB * K * K);
       float v = 0.f;
       if (co < cout && c0 + ci < cin)
-        v = to_f32(weight[(static_cast<long long>(co) * cin + c0 + ci) * (K * K) + tap]);
+        v = weight[(static_cast<long long>(co) * cin + c0 + ci) * (K * K) + tap];
       ws[i] = v;
     }
     __syncthreads();
@@ -152,16 +156,16 @@ head_conv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T*
   const int oy = oy0 + ty;
   if (oy >= ho) return;
   const long long howo = static_cast<long long>(ho) * wo;
-  T* ob = out + static_cast<long long>(b) * cout * howo + static_cast<long long>(oy) * wo;
+  float* ob = out + static_cast<long long>(b) * cout * howo + static_cast<long long>(oy) * wo;
 #pragma unroll
   for (int j = 0; j < CO; ++j) {
     const int co = g * CO + j;
     if (co >= cout) continue;
-    const float bv = to_f32(bias[co]);
+    const float bv = bias[co];
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int ox = ox0 + tx + p * kTX;
-      if (ox < wo) ob[co * howo + ox] = from_f32<T>(epilogue(acc[p][j], bv, leaky));
+      if (ox < wo) ob[co * howo + ox] = epilogue(acc[p][j], bv, leaky);
     }
   }
 }
@@ -179,10 +183,10 @@ struct DeconvGeom {
   static constexpr size_t SMEM = (W_FLOATS + X_FLOATS) * sizeof(float);
 };
 
-template <typename T, int COB, int PX, int CK>
+template <int COB, int PX, int CK>
 __global__ void __launch_bounds__(kThreads)
-head_deconv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T* __restrict__ bias,
-                   T* __restrict__ out, int cin, int h, int w, int cout, bool leaky) {
+head_deconv_kernel(const float* __restrict__ x, const float* __restrict__ weight, const float* __restrict__ bias,
+                   float* __restrict__ out, int cin, int h, int w, int cout, bool leaky) {
   using Geo = DeconvGeom<COB, PX, CK>;
   constexpr int TY = Geo::TY, TW = Geo::TW, IR = Geo::IR, IC = Geo::IC;
   extern __shared__ float4 smem4[];
@@ -198,7 +202,7 @@ head_deconv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const 
   const int m0 = blockIdx.y * TY;
   const int n0 = blockIdx.x * TW;
   const long long hw = static_cast<long long>(h) * w;
-  const T* xb = x + static_cast<long long>(b) * cin * hw;
+  const float* xb = x + static_cast<long long>(b) * cin * hw;
 
   float acc[PX][COB];
 #pragma unroll
@@ -215,7 +219,7 @@ head_deconv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const 
       const int gy = m0 - 1 + r, gx = n0 - 1 + c;
       float v = 0.f;
       if (c0 + ci < cin && gy >= 0 && gy < h && gx >= 0 && gx < w)
-        v = to_f32(xb[(c0 + ci) * hw + static_cast<long long>(gy) * w + gx]);
+        v = xb[(c0 + ci) * hw + static_cast<long long>(gy) * w + gx];
       xs[i] = v;
     }
     for (int i = tid; i < Geo::W_FLOATS; i += kThreads) {
@@ -224,7 +228,7 @@ head_deconv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const 
       const int ci = i / (COB * 16);
       float v = 0.f;
       if (co < cout && c0 + ci < cin)
-        v = to_f32(weight[(static_cast<long long>(c0 + ci) * cout + co) * 16 + tap]);
+        v = weight[(static_cast<long long>(c0 + ci) * cout + co) * 16 + tap];
       ws[i] = v;
     }
     __syncthreads();
@@ -253,107 +257,113 @@ head_deconv_kernel(const T* __restrict__ x, const T* __restrict__ weight, const 
   if (m >= h) return;
   const int ho = 2 * h, wo = 2 * w;
   const long long howo = static_cast<long long>(ho) * wo;
-  T* ob = out + static_cast<long long>(b) * cout * howo + static_cast<long long>(2 * m + py) * wo + px;
+  float* ob = out + static_cast<long long>(b) * cout * howo + static_cast<long long>(2 * m + py) * wo + px;
 #pragma unroll
   for (int j = 0; j < COB; ++j) {
     if (j >= cout) continue;
-    const float bv = to_f32(bias[j]);
+    const float bv = bias[j];
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int n = n0 + tx + p * kTX;
-      if (n < w) ob[j * howo + 2 * n] = from_f32<T>(epilogue(acc[p][j], bv, leaky));
+      if (n < w) ob[j * howo + 2 * n] = epilogue(acc[p][j], bv, leaky);
     }
   }
 }
 
-template <typename T, int K, int S, int COB, int G, int CK>
+template <int K, int S, int COB, int G, int CK>
 int launch_conv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
                 int h, int w, int cout, int ho, int wo, bool leaky, cudaStream_t stream) {
   constexpr int PX = 4;
   using Geo = ConvGeom<K, S, COB, G, PX, CK>;
-  auto kernel = head_conv_kernel<T, K, S, COB, G, PX, CK>;
+  auto kernel = head_conv_kernel<K, S, COB, G, PX, CK>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(Geo::SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((wo + Geo::TW - 1) / Geo::TW, (ho + Geo::TY - 1) / Geo::TY, n);
   kernel<<<grid, kThreads, Geo::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(weight), static_cast<const T*>(bias),
-      static_cast<T*>(out), cin, h, w, cout, ho, wo, leaky);
+      static_cast<const float*>(x), static_cast<const float*>(weight), static_cast<const float*>(bias),
+      static_cast<float*>(out), cin, h, w, cout, ho, wo, leaky);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K, int S>
+template <int K, int S>
 int dispatch_cout(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
                   int h, int w, int cout, int ho, int wo, bool leaky, cudaStream_t stream) {
   constexpr int CK = K == 7 ? 4 : 8;
   if (cout <= 2)
-    return launch_conv<T, K, S, 2, 1, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return launch_conv<K, S, 2, 1, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   if (cout <= 16)
-    return launch_conv<T, K, S, 16, 1, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
-  return launch_conv<T, K, S, 64, 4, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return launch_conv<K, S, 16, 1, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+  return launch_conv<K, S, 64, 4, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
 }
 
-template <typename T>
 int dispatch_conv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
                   int h, int w, int cout, int k, int stride, bool leaky, cudaStream_t stream) {
   const int ho = (h + 2 * (k / 2) - k) / stride + 1;
   const int wo = (w + 2 * (k / 2) - k) / stride + 1;
   if (k == 3 && stride == 1)
-    return dispatch_cout<T, 3, 1>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return dispatch_cout<3, 1>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   if (k == 3 && stride == 2)
-    return dispatch_cout<T, 3, 2>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return dispatch_cout<3, 2>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   if (k == 7 && stride == 2)
-    return dispatch_cout<T, 7, 2>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return dispatch_cout<7, 2>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int COB>
+template <int COB>
 int launch_deconv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
                   int h, int w, int cout, bool leaky, cudaStream_t stream) {
   constexpr int PX = 4, CK = 8;
   using Geo = DeconvGeom<COB, PX, CK>;
-  auto kernel = head_deconv_kernel<T, COB, PX, CK>;
+  auto kernel = head_deconv_kernel<COB, PX, CK>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(Geo::SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((w + Geo::TW - 1) / Geo::TW, (h + Geo::TY - 1) / Geo::TY, n);
   kernel<<<grid, kThreads, Geo::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(weight), static_cast<const T*>(bias),
-      static_cast<T*>(out), cin, h, w, cout, leaky);
+      static_cast<const float*>(x), static_cast<const float*>(weight), static_cast<const float*>(bias),
+      static_cast<float*>(out), cin, h, w, cout, leaky);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_deconv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
                     int h, int w, int cout, bool leaky, cudaStream_t stream) {
-  if (cout <= 2) return launch_deconv<T, 2>(x, weight, bias, out, n, cin, h, w, cout, leaky, stream);
-  if (cout <= 16) return launch_deconv<T, 16>(x, weight, bias, out, n, cin, h, w, cout, leaky, stream);
+  if (cout <= 2) return launch_deconv<2>(x, weight, bias, out, n, cin, h, w, cout, leaky, stream);
+  if (cout <= 16) return launch_deconv<16>(x, weight, bias, out, n, cin, h, w, cout, leaky, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// The bfloat16 route (head_conv_tc.cu): packed weights, tensor cores.
+int head_conv_mma(const void* x, const void* wpacked, const void* bias, void* out, int n, int cin, int h, int w,
+                  int cout, int k, int stride, bool leaky, cudaStream_t stream);
+int head_deconv_mma(const void* x, const void* wpacked, const void* bias, void* out, int n, int cin, int h, int w,
+                    int cout, bool leaky, cudaStream_t stream);
+
 // k x k conv, pad k/2: (k, stride) in {(3, 1), (3, 2), (7, 2)}, 1 <= Cout <= 64.
+// float32: weight (Cout, Cin, k, k); bfloat16: weight packed as [k*k][cout_pad][cin_pad].
 extern "C" int fn2_head_conv(const void* x, const void* weight, const void* bias, void* out, int n,
                              int cin, int h, int w, int cout, int k, int stride, int leaky,
                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout < 1 || cout > 64 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
-    return dispatch_conv<float>(x, weight, bias, out, n, cin, h, w, cout, k, stride, leaky != 0, s);
+    return dispatch_conv(x, weight, bias, out, n, cin, h, w, cout, k, stride, leaky != 0, s);
   if (dtype == kBFloat16)
-    return dispatch_conv<__nv_bfloat16>(x, weight, bias, out, n, cin, h, w, cout, k, stride, leaky != 0, s);
+    return head_conv_mma(x, weight, bias, out, n, cin, h, w, cout, k, stride, leaky != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // k4/s2/p1 deconv: (N, Cin, H, W) -> (N, Cout, 2H, 2W), 1 <= Cout <= 16.
+// float32: weight (Cin, Cout, 4, 4); bfloat16: weight packed as [16][cout_pad][cin_pad].
 extern "C" int fn2_head_deconv(const void* x, const void* weight, const void* bias, void* out, int n,
                                int cin, int h, int w, int cout, int leaky, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout < 1 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
-    return dispatch_deconv<float>(x, weight, bias, out, n, cin, h, w, cout, leaky != 0, s);
+    return dispatch_deconv(x, weight, bias, out, n, cin, h, w, cout, leaky != 0, s);
   if (dtype == kBFloat16)
-    return dispatch_deconv<__nv_bfloat16>(x, weight, bias, out, n, cin, h, w, cout, leaky != 0, s);
+    return head_deconv_mma(x, weight, bias, out, n, cin, h, w, cout, leaky != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

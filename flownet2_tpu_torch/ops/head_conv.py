@@ -11,10 +11,12 @@ matrix unit; the port computes the same function in the plain NCHW layout:
 - ``head_deconv2d``: the FlowNet deconv, k=4, s=2, p=1, plus bias;
 
 each followed by leaky ReLU (slope 0.1) when ``leaky``. A CUDA tensor goes
-to an autograd Function whose forward is the hand-written kernel
-(csrc/head_conv.cu) and whose backward is autograd through the plain
-version, as the JAX custom VJP runs the XLA formulation backward
-(ops/s2d.py:345-357,375-385); a CPU tensor goes to the plain version.
+to an autograd Function whose forward is the hand-written kernel (float32:
+CUDA cores, csrc/head_conv.cu; bfloat16: tensor cores, csrc/head_conv_tc.cu,
+on weights laid out by :func:`pack_head_weight`) and whose backward is
+autograd through the plain version, as the JAX custom VJP runs the XLA
+formulation backward (ops/s2d.py:345-357,375-385); a CPU tensor goes to the
+plain version.
 Which layers come here at all is :func:`use_head_kernel`'s decision.
 """
 
@@ -31,6 +33,9 @@ CONV_GEOMETRIES = ((3, 1), (3, 2), (7, 2))
 MAX_CONV_COUT, MAX_DECONV_COUT = 64, 16
 # full-resolution width above which the head layers take the kernel
 HEAD_KERNEL_MIN_WIDTH = 512
+# the bfloat16 kernel's widths: input channels per k16 step, output channels
+# per n tile group (one, two or eight n8 tiles)
+PACK_CIN, PACK_COUTS = 16, (8, 16, 64)
 
 
 def use_head_kernel(device_type: str, full_res_width: int) -> bool:
@@ -73,6 +78,35 @@ def head_deconv2d_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     """Plain PyTorch version: ``F.conv_transpose2d`` (k4, s2, p1) and the leaky ReLU."""
     out = F.conv_transpose2d(x, weight, bias, stride=2, padding=1)
     return leaky_relu(out) if leaky else out
+
+
+def pack_head_weight(weight: torch.Tensor, *, deconv: bool) -> torch.Tensor:
+    """The bfloat16 kernel's weight layout, (taps, cout_pad, cin_pad), zero in
+    the padding: cout_pad is 8, 16 or 64 (the kernel's n-tile widths), cin_pad
+    the next multiple of 16 (a k16 step per channel chunk).
+
+    conv, weight (Cout, Cin, k, k): tap ky * k + kx holds weight[:, :, ky, kx].
+    deconv, weight (Cin, Cout, 4, 4) (k4/s2/p1): output phase (py, px) of
+    output (2m + py, 2n + px) is a 2x2 conv over input (m - 1 + py + a,
+    n - 1 + px + b); tap (py * 2 + px) * 4 + a * 2 + b holds
+    weight[:, :, 3 - py - 2a, 3 - px - 2b] transposed.
+
+    A row of the matrix (cout_pad, taps * cin_pad) that this reshapes to,
+    times the im2col columns in tap-major, channel-minor order, is the
+    layer before bias. Packed anew on every call: training changes the
+    weights."""
+    if deconv:
+        cin, cout = weight.shape[:2]
+        # flipped, kernel index 3 - py - 2a becomes py + 2a: split it as (a, py)
+        taps = weight.flip(2, 3).reshape(cin, cout, 2, 2, 2, 2).permute(3, 5, 2, 4, 1, 0)  # py, px, a, b, co, ci
+    else:
+        cout, cin, k, _ = weight.shape
+        taps = weight.permute(2, 3, 0, 1)  # ky, kx, co, ci
+    cout_pad = next(c for c in PACK_COUTS if c >= cout)
+    cin_pad = -(-cin // PACK_CIN) * PACK_CIN
+    packed = weight.new_zeros((taps.shape[:-2].numel(), cout_pad, cin_pad))
+    packed.view(*taps.shape[:-2], cout_pad, cin_pad)[..., :cout, :cin] = taps
+    return packed
 
 
 def vjp_of_plain(plain, inputs, needs, grads, **kwargs):
@@ -139,7 +173,9 @@ def check_cuda_inputs(name: str, **tensors: torch.Tensor) -> torch.dtype:
 def head_conv2d_cuda(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, stride: int, leaky: bool
 ) -> torch.Tensor:
-    """Launch the conv kernel (csrc/head_conv.cu) on the current stream.
+    """Launch the conv kernel on the current stream: float32 on the CUDA
+    cores (csrc/head_conv.cu), bfloat16 on the tensor cores
+    (csrc/head_conv_tc.cu, weight packed by :func:`pack_head_weight`).
 
     Takes contiguous CUDA tensors on one device, all float32 or all
     bfloat16: x (N,Cin,H,W), weight (Cout,Cin,k,k) with (k, stride) in
@@ -159,6 +195,8 @@ def head_conv2d_cuda(
     out = torch.empty((n, cout, ho, wo), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if dtype == torch.bfloat16:
+        weight = pack_head_weight(weight, deconv=False)
     status = _build.library().fn2_head_conv(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, cin, h, w, cout, k, stride,
         int(leaky), _build.DTYPE_CODES[dtype], torch.cuda.current_stream(x.device).cuda_stream,
@@ -172,7 +210,9 @@ head_conv2d_cuda.launches = 0  # kernel launches since the last reset
 
 
 def head_deconv2d_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, leaky: bool) -> torch.Tensor:
-    """Launch the deconv kernel (csrc/head_conv.cu) on the current stream.
+    """Launch the deconv kernel on the current stream: float32 on the CUDA
+    cores (csrc/head_conv.cu), bfloat16 on the tensor cores
+    (csrc/head_conv_tc.cu, weight packed by :func:`pack_head_weight`).
 
     Takes contiguous CUDA tensors on one device, all float32 or all
     bfloat16: x (N,Cin,H,W), weight (Cin,Cout,4,4) with Cout <= 16, bias
@@ -189,6 +229,8 @@ def head_deconv2d_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     out = torch.empty((n, cout, 2 * h, 2 * w), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if dtype == torch.bfloat16:
+        weight = pack_head_weight(weight, deconv=True)
     status = _build.library().fn2_head_deconv(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, cin, h, w, cout, int(leaky),
         _build.DTYPE_CODES[dtype], torch.cuda.current_stream(x.device).cuda_stream,

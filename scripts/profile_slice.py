@@ -22,6 +22,12 @@ prints:
     python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4   # Sintel size
     python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4 --fusion-head
     python3 scripts/profile_slice.py --train              # train steps, 448x320 b8
+    python3 scripts/profile_slice.py --head-layers        # K3 per layer at Sintel b4
+
+With ``--head-layers`` it runs K3's wrappers on each of its Sintel b4 layer
+shapes (``chip_smoke.HEAD_GEOMETRIES``) and prints, per call, the device
+time of the head kernel, of everything else the wrapper launches (the
+bfloat16 route's weight packing) and of cuDNN's call on the same tensors.
 
 TF32 is off, as in chip_smoke.py. Imports neither jax nor the JAX package.
 """
@@ -51,13 +57,15 @@ OP_PARTS = {
     "bias add_ (separate kernel)": ("aten::add_",),
     "leaky ReLU (where + ge)": ("aten::where", "aten::ge"),
 }
+HEAD_PART = "head_conv kernels (K3: conv and deconv; f32 CUDA cores, bf16 tensor cores)"
 # part of the slice -> substrings of the device kernels' names
 KERNEL_PARTS = {
     "correlation kernel": ("correlation_kernel",),
     "correlation backward kernel": ("correlation_backward_kernel",),
     "flow_warp kernel": ("flow_warp_kernel",),
     "flow_warp backward kernel": ("flow_warp_backward_kernel",),
-    "head_conv kernels (K3: conv and deconv)": ("head_conv_kernel", "head_deconv_kernel"),
+    HEAD_PART: (
+        "head_conv_kernel", "head_deconv_kernel", "head_conv_mma_kernel"),
     "fusion_head kernel (K4)": ("fusion_head_kernel",),
     "cuDNN NCHW->NHWC transposes": ("nchwToNhwc",),
     "cuDNN NHWC->NCHW transposes": ("nhwcToNchw",),
@@ -160,6 +168,53 @@ def profile_train(args, objective: str, dev: torch.device) -> str:
     return profile_run(args, f"train {objective} f32", lambda: solver.step(batch))
 
 
+def _device_us(run) -> dict[str, float]:
+    """Device time per call of ``run`` in us, split into the head kernels
+    and the rest, over ``STEPS`` calls after ``WARMUP``."""
+    for _ in range(WARMUP):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEPS):
+            run()
+        torch.cuda.synchronize()
+    out = {"head kernel": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            head = any(p in e.name for p in KERNEL_PARTS[HEAD_PART])
+            out["head kernel" if head else "other"] += e.time_range.elapsed_us() / STEPS
+    return out
+
+
+def profile_head_layers(args, dev: torch.device) -> str:
+    """K3's wrappers and cuDNN at each Sintel b4 head-layer shape."""
+    import torch.nn.functional as F
+
+    from chip_smoke import HEAD_GEOMETRIES
+    from flownet2_tpu_torch.ops.head_conv import head_conv2d_cuda, head_deconv2d_cuda
+
+    g = torch.Generator().manual_seed(SEED)
+    lines = []
+    for label, x_shape, w_shape, stride, leaky, count in HEAD_GEOMETRIES:
+        x32 = torch.randn(x_shape, generator=g)
+        w32 = torch.randn(w_shape, generator=g) * 0.1
+        b32 = torch.randn(w_shape[1] if stride == 0 else w_shape[0], generator=g)
+        for dtype in args.dtypes:
+            x, w, b = (t.to(dev, getattr(torch, dtype)) for t in (x32, w32, b32))
+            if stride == 0:
+                ours = _device_us(lambda: head_deconv2d_cuda(x, w, b, leaky=leaky))
+                lib = _device_us(lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1))
+            else:
+                ours = _device_us(lambda: head_conv2d_cuda(x, w, b, stride=stride, leaky=leaky))
+                lib = _device_us(lambda: F.conv2d(x, w, b, stride=stride, padding=w_shape[-1] // 2))
+            lines.append(f"{label} {dtype}: head kernel {ours['head kernel'] / 1e3:.4f} ms, other "
+                         f"{ours['other'] / 1e3:.4f} ms, cuDNN call {(lib['head kernel'] + lib['other']) / 1e3:.4f} "
+                         f"ms per call; {count} per forward")
+            del x, w, b
+        torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--height", type=int, default=320)
@@ -169,6 +224,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="directory for the full key_averages tables")
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     p.add_argument("--fusion-head", action="store_true", help="FlowNet2 with the fused fusion-net decoder head")
+    p.add_argument("--head-layers", action="store_true", help="K3 and cuDNN per head layer at Sintel b4")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -181,7 +237,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.train:
+    if args.head_layers:
+        print(profile_head_layers(args, dev))
+    elif args.train:
         for objective in ("flownetc", "joint"):
             print(profile_train(args, objective, dev))
     else:

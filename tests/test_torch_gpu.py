@@ -299,9 +299,11 @@ def _conv_inputs(device, dtype, x_shape, w_shape, seed, deconv=False):
     return tuple(t.to(device, dtype) for t in (x, weight, bias))
 
 
-HEAD_CONV_CASES = [  # k, stride, cin, cout, leaky: the nets' head geometries, and one masked Cout
+HEAD_CONV_CASES = [  # k, stride, cin, cout, leaky: the nets' head geometries, one masked Cout, and
+    # Cin 162 and 82 and Cout 2 at the other geometries (bf16: Cin padded to 16s, Cout to 8, 16 or 64)
     (3, 1, 11, 64, True), (3, 1, 82, 16, False), (3, 1, 16, 2, False), (3, 2, 64, 64, True),
-    (7, 2, 3, 64, True), (7, 2, 12, 64, True), (3, 1, 6, 40, True),
+    (7, 2, 3, 64, True), (7, 2, 12, 64, True), (3, 1, 6, 40, True), (3, 1, 6, 64, True),
+    (3, 1, 162, 16, True), (3, 2, 11, 2, False), (7, 2, 82, 16, True),
 ]
 DTYPE_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
@@ -309,8 +311,10 @@ DTYPE_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 @pytest.mark.parametrize("dtype,rel", DTYPE_TOLS)
 @pytest.mark.parametrize("k,stride,cin,cout,leaky", HEAD_CONV_CASES)
 def test_head_conv_kernel_matches_plain(cuda, no_tf32, k, stride, cin, cout, leaky, dtype, rel):
-    """K3's conv at ragged sizes (tiles cut at the right and bottom edges):
-    within rel * max|ref| of F.conv2d plus leaky on the same inputs."""
+    """K3's conv at ragged sizes (tiles cut at the right and bottom edges;
+    odd output widths at stride 2), float32 on the CUDA cores and bfloat16
+    on the tensor cores: within rel * max|ref| of F.conv2d plus leaky on the
+    same inputs."""
     x, w, b = _conv_inputs(cuda, dtype, (2, cin, 37, 150), (cout, cin, k, k), seed=k * 100 + cin)
     before = head_conv2d_cuda.launches
     got = head_conv2d(x, w, b, stride=stride, leaky=leaky)
@@ -450,3 +454,19 @@ def test_flownet2_wide_on_card_uses_head_kernels_and_matches_cpu(cuda, no_tf32, 
     if fused:
         unfused = FlowRunner("flownet2", params, device=cuda).batch(i0, i1)
         assert float(np.sqrt(((got - unfused) ** 2).sum(-1)).mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused-head"])
+def test_flownet2_wide_bf16_on_card_uses_head_kernels(cuda, fused):
+    """At 64x576 one bfloat16 FlowNet2 forward launches K3's tensor-core
+    route 12 times (8 with the fused head, plus K4 once) and gives a finite
+    flow of the input's shape. (bf16 against f32 under random weights is
+    chaotic: no closeness check.)"""
+    params = init_params("flownet2", seed=0)
+    rng = np.random.default_rng(2)
+    i0, i1 = (rng.uniform(0, 255, (2, 64, 576, 3)).astype(np.float32) for _ in range(2))
+    runner = FlowRunner("flownet2", params, device=cuda, dtype="bfloat16", fusion_head=fused)
+    k3, k4 = head_launches(), fusion_head_cuda.launches
+    got = runner.batch(i0, i1)
+    assert (head_launches() - k3, fusion_head_cuda.launches - k4) == ((8, 1) if fused else (12, 0))
+    assert got.shape == (2, 64, 576, 2) and np.isfinite(got).all()

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import flownet2_tpu.ops.pallas.s2d_conv as jax_s2d_conv
 from flownet2_tpu.checkpoint import save_params, unflatten_params
@@ -37,12 +38,16 @@ from flownet2_tpu_torch.inference import FlowRunner
 from flownet2_tpu_torch.models import FlowNet2, flownet2_apply
 from flownet2_tpu_torch.ops import fusion_head as fusion_head_op
 from flownet2_tpu_torch.ops import head_conv
+from flownet2_tpu_torch.ops.activations import leaky_relu as torch_leaky_relu
 from flownet2_tpu_torch.ops.fusion_head import fusion_head, fusion_head_cuda
 from flownet2_tpu_torch.ops.head_conv import (
     head_conv2d,
     head_conv2d_cuda,
+    head_conv2d_plain,
     head_deconv2d,
     head_deconv2d_cuda,
+    head_deconv2d_plain,
+    pack_head_weight,
     use_head_kernel,
 )
 
@@ -118,6 +123,105 @@ def test_head_deconv2d_matches_jax_s2d_kernel(rng, cin, cout, leaky):
         ref = np.asarray(jax_leaky_relu(ref) if leaky else ref)
         assert got.shape == ref.shape == (2, 18, 26, cout)
         np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+# -- K3's bfloat16 route: the packed weight layout ------------------------------
+
+
+def _packed_conv(x, weight, bias, *, stride, leaky):
+    """The conv as the tensor-core kernel sums it: im2col columns in
+    tap-major, channel-minor order (channels padded to cin_pad) times
+    pack_head_weight's rows, then bias and leaky."""
+    cout, cin, k, _ = weight.shape
+    packed = pack_head_weight(weight, deconv=False)
+    taps, cout_pad, cin_pad = packed.shape
+    n, _, h, w = x.shape
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    cols = F.unfold(x, k, padding=k // 2, stride=stride).reshape(n, cin, taps, -1).transpose(1, 2)
+    cols = F.pad(cols, (0, 0, 0, cin_pad - cin)).reshape(n, taps * cin_pad, -1)
+    out = packed.permute(1, 0, 2).reshape(cout_pad, -1) @ cols
+    out = out[:, :cout].reshape(n, cout, ho, wo) + bias[:, None, None]
+    return torch_leaky_relu(out) if leaky else out
+
+
+def _packed_deconv(x, weight, bias, *, leaky):
+    """The k4/s2 deconv as the kernel sums it: per output phase (py, px), a
+    2x2 im2col over the input padded by one, times the phase's four packed
+    taps."""
+    cin, cout = weight.shape[:2]
+    packed = pack_head_weight(weight, deconv=True)
+    _, cout_pad, cin_pad = packed.shape
+    n, _, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    out = x.new_zeros(n, cout, 2 * h, 2 * w)
+    for py in (0, 1):
+        for px in (0, 1):
+            phase = 2 * py + px
+            cols = F.unfold(xp[:, :, py:py + h + 1, px:px + w + 1], 2).reshape(n, cin, 4, -1).transpose(1, 2)
+            cols = F.pad(cols, (0, 0, 0, cin_pad - cin)).reshape(n, 4 * cin_pad, -1)
+            wm = packed[4 * phase:4 * phase + 4].permute(1, 0, 2).reshape(cout_pad, -1)
+            out[:, :, py::2, px::2] = (wm @ cols)[:, :cout].reshape(n, cout, h, w)
+    out = out + bias[:, None, None]
+    return torch_leaky_relu(out) if leaky else out
+
+
+@pytest.mark.parametrize(
+    "k,stride,cin,cout,leaky",
+    [(3, 1, 11, 20, True), (3, 2, 19, 13, True), (7, 2, 3, 5, True), (3, 1, 82, 2, False)],
+    ids=["3x3s1-11-20", "3x3s2-19-13", "7x7s2-3-5", "3x3s1-82-2"],
+)
+def test_packed_head_weight_conv_matches_plain_and_jax(rng, k, stride, cin, cout, leaky):
+    """pack_head_weight's conv layout, as an im2col matmul in the kernel's K
+    order, is the layer: against head_conv2d_plain and the JAX s2d conv
+    through its Pallas kernel (interpret mode), float32, 1e-4."""
+    x = rng.standard_normal((2, 18, 26, cin)).astype(np.float32)
+    w = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32)
+    weight = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
+    got = _packed_conv(nchw(x), weight, torch.from_numpy(b), stride=stride, leaky=leaky)
+    plain = head_conv2d_plain(nchw(x), weight, torch.from_numpy(b), stride=stride, leaky=leaky)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-4, atol=1e-4)
+    with mock.patch.object(jax_s2d_conv.pl, "pallas_call", _interpret):
+        ref = jax_s2d._conv2d_s2d_routed(jax_s2d.space_to_depth(jnp.asarray(x)), jnp.asarray(w), jnp.asarray(b),
+                                         stride, None)
+    ref = jax_s2d.depth_to_space(ref) if stride == 1 else ref
+    ref = np.asarray(jax_leaky_relu(ref) if leaky else ref)
+    np.testing.assert_allclose(nhwc(got), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cin,cout,leaky", [(162, 13, True), (2, 2, False), (5, 9, True)])
+def test_packed_head_weight_deconv_matches_plain_and_jax(rng, cin, cout, leaky):
+    """pack_head_weight's deconv layout (four phases of four taps), as
+    im2col matmuls, is the k4/s2 deconv: against head_deconv2d_plain and the
+    JAX s2d deconv through its Pallas kernel (interpret mode), float32, 1e-4."""
+    x = rng.standard_normal((2, 9, 13, cin)).astype(np.float32)
+    w = (rng.standard_normal((4, 4, cout, cin)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32)
+    weight = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
+    got = _packed_deconv(nchw(x), weight, torch.from_numpy(b), leaky=leaky)
+    plain = head_deconv2d_plain(nchw(x), weight, torch.from_numpy(b), leaky=leaky)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-4, atol=1e-4)
+    with mock.patch.object(jax_s2d_conv.pl, "pallas_call", _interpret):
+        ref = jax_s2d._deconv2d_s2d_routed(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ref = np.asarray(jax_s2d.depth_to_space(ref))
+    np.testing.assert_allclose(nhwc(got), np.asarray(jax_leaky_relu(ref)) if leaky else ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("w_shape,deconv,packed_shape", [
+    ((2, 3, 7, 7), False, (49, 8, 16)), ((16, 16, 3, 3), False, (9, 16, 16)), ((40, 82, 3, 3), False, (9, 64, 96)),
+    ((162, 9, 4, 4), True, (16, 16, 176)), ((2, 2, 4, 4), True, (16, 8, 16)),
+])
+def test_packed_head_weight_shape_and_padding(w_shape, deconv, packed_shape):
+    """(taps, cout_pad, cin_pad): Cout to the kernel's n-tile widths 8, 16 or
+    64, Cin to a multiple of 16, zero in the padding, every weight kept
+    once, the dtype kept."""
+    weight = torch.randn(w_shape, generator=torch.Generator().manual_seed(0)).bfloat16()
+    cin, cout = w_shape[:2] if deconv else w_shape[1::-1]
+    packed = pack_head_weight(weight, deconv=deconv)
+    assert packed.shape == packed_shape and packed.dtype == torch.bfloat16
+    assert not packed[:, cout:].any() and not packed[:, :, cin:].any()
+    kept = packed[:, :cout, :cin].flatten().float().sort().values
+    assert torch.equal(kept, weight.flatten().float().sort().values)
 
 
 def test_head_cuda_wrappers_refuse_cpu_tensors():
