@@ -3,10 +3,10 @@
 
 Builds the hand-written CUDA kernels from ``flownet2_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card at the shapes FlowNet2
-gives it (warp and correlation, forward and backward, at 448x320 batch 8;
-the head convs, K3, and the fused fusion-net decoder head, K4, at Sintel
-size 1024x448 batch 4), then drives the port's paths with seeded random
-weights:
+gives it (warp and correlation, forward and backward, at 448x320 batch 8,
+and the correlation forward also at Sintel b4's features; the head convs,
+K3, and the fused fusion-net decoder head, K4, at Sintel size 1024x448
+batch 4), then drives the port's paths with seeded random weights:
 
 - inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
   bfloat16) and the ``run_flownet`` CLI, checked against the same port on
@@ -59,6 +59,7 @@ CORR = dict(max_displacement=20, kernel_size=1, stride1=1, stride2=2, pad=20)
 CORR_SHAPE = (N, 256, H // 8, W // 8)  # FlowNetC's conv3 features at 448x320
 SINTEL_N, SINTEL_FRAME = 4, (436, 1024)  # Sintel frames; FlowRunner adapts them to 448x1024
 SINTEL_H, SINTEL_W = 448, 1024
+CORR_SINTEL_SHAPE = (SINTEL_N, 256, SINTEL_H // 8, SINTEL_W // 8)
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, dense bfloat16 on the tensor cores, and device memory
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -160,6 +161,15 @@ def abs_err_and_scale(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, floa
     return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
 
 
+def corr_bound(shape, size: int = 4) -> dict:
+    """The correlation forward's bound at features ``shape`` (N, C, H, W):
+    f1 and f2 read, 441 channels written, one multiply-add per channel and
+    displacement (the float32 CUDA cores, both dtypes: the kernel sums in
+    float32). No library call computes a cost volume."""
+    n_, c_, h_, w_ = shape
+    return bound(size * (2 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 2 * n_ * 441 * h_ * w_ * c_)
+
+
 def phase_kernels(dev: torch.device, card: str) -> dict:
     from flownet2_tpu_torch.ops.correlation import correlation_cuda, correlation_plain
     from flownet2_tpu_torch.ops.warp import flow_warp_cuda, flow_warp_plain
@@ -214,16 +224,30 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
             worst = err
             ms = cuda_ms(lambda: correlation_cuda(a_nhwc, b_nhwc, max_displacement=20, stride2=2))
             plain_ms = cuda_ms(lambda: correlation_plain(a, b, **CORR))
+    b = corr_bound(CORR_SHAPE)
     print(f"[kernels] correlation f32 {CORR_SHAPE} NCHW -> 441 channels: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms ({card})")
-    # f1 and f2 read, 441 channels written; one multiply-add per channel and
-    # displacement. No library call computes a cost volume.
-    n_, c_, h_, w_ = CORR_SHAPE
+          f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) ({card})")
     results["correlation"] = dict(
         name="correlation", route="cuda", source="flownet2_tpu_torch/csrc/correlation.cu",
-        replaces="flownet2_tpu/ops/correlation.py:434", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        **bound(4 * (2 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 2 * n_ * 441 * h_ * w_ * c_), library_ms=None,
+        replaces="flownet2_tpu/ops/correlation.py:434", max_abs_err=worst, ms=ms, plain_ms=plain_ms, **b,
+        library_ms=None,
     )
+    # the Sintel b4 feature shape: checked in both dtypes and timed beside its bound
+    g = torch.Generator().manual_seed(SEED + 7)
+    s1, s2 = (torch.randn(CORR_SINTEL_SHAPE, generator=g).to(dev) for _ in range(2))
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        a, b_ = s1.to(dtype), s2.to(dtype)
+        a_nhwc, b_nhwc = a.permute(0, 2, 3, 1).contiguous(), b_.permute(0, 2, 3, 1).contiguous()
+        got = correlation_cuda(a_nhwc, b_nhwc, max_displacement=20, stride2=2)
+        torch.cuda.synchronize()
+        err, top = abs_err_and_scale(got, correlation_plain(a, b_, **CORR))
+        check(err <= rel * top, f"correlation Sintel {dtype}: max abs err {err} > {rel * top}")
+        ms = cuda_ms(lambda: correlation_cuda(a_nhwc, b_nhwc, max_displacement=20, stride2=2))
+        b = corr_bound(CORR_SINTEL_SHAPE, DTYPE_PEAKS[dtype][0])
+        print(f"[kernels] correlation {str(dtype)[6:]} {CORR_SINTEL_SHAPE} (Sintel b4) -> 441 channels: max abs err "
+              f"{err:.3g} (tol {rel * top:.3g}); kernel {ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
+              f"({card})")
+        del a, b_, a_nhwc, b_nhwc, got
     results.update(phase_backward_kernels(dev, card, img32, flow32, f1, f2))
     return results
 

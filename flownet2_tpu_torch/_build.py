@@ -52,10 +52,10 @@ _SIGNATURES = {
     # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement,
     # stride2, dtype, stream
     "fn2_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, weight (bf16: packed by ops/head_conv.pack_head_weight), bias, out, n, cin, h, w,
-    # cout, k, stride, leaky, dtype, stream
+    # x, weight (packed by ops/head_conv.pack_head_weight_f32 / pack_head_weight), bias, out, n, cin,
+    # h, w, cout, k, stride, leaky, dtype, stream
     "fn2_head_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, weight (bf16: packed), bias, out, n, cin, h, w, cout, leaky, dtype, stream
+    # x, weight (packed), bias, out, n, cin, h, w, cout, leaky, dtype, stream
     "fn2_head_deconv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # concat1, c0, then weight and bias of inter_conv1, predict_flow1, deconv0,
     # upsample_flow1to0, inter_conv0, predict_flow0, flow0, flow1, n, h2, w2, dtype, stream

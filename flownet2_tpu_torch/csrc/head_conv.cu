@@ -11,54 +11,90 @@
 //
 // Two routes behind the same entry points: float32 runs the CUDA-core
 // kernels below; bfloat16 runs the tensor-core implicit GEMM of
-// head_conv_tc.cu, which takes the weight packed by
-// ops/head_conv.py::pack_head_weight.
+// head_conv_tc.cu. Each takes its weight packed by ops/head_conv.py
+// (float32: pack_head_weight_f32; bfloat16: pack_head_weight), per call.
 //
-// Float32 layouts (all contiguous): x (N, Cin, H, W); conv weight
-// (Cout, Cin, k, k) (OIHW, nn.Conv2d); deconv weight (Cin, Cout, 4, 4)
-// (nn.ConvTranspose2d); bias (Cout); out (N, Cout, Ho, Wo). Sums in float32.
-//
-// Design of the float32 route. One block of 256 threads computes an output tile for all Cout
-// (<= 64) of one image. Per chunk of CK input channels, the input patch with
-// its halo (zero outside the image: the conv's padding) and the chunk's
-// weights are staged in shared memory, weights as
-// [ci][tap][cout]. A warp covers 32 neighbouring output columns of one row
-// and one group of output channels, so its weight loads are broadcasts and
-// its input loads are consecutive addresses. Each thread keeps PX pixels
-// (PX columns 32 apart) times CO output channels of sums in registers: per
-// tap, PX input loads and CO/4 vector weight loads feed PX*CO FMAs.
-// The deconv computes all four output phases (y%2, x%2) of a half-resolution
-// tile; a warp holds one phase, whose 2x2 taps per channel are
-// ky = 3 - py - 2a, kx = 3 - px - 2b over input (m - 1 + py + a, n - 1 + px + b)
-// for output (2m + py, 2n + px) (the tap algebra of ops/s2d.py:211-232).
+// Float32 layouts: x (N, Cin, H, W), out (N, Cout, Ho, Wo), bias (Cout),
+// all contiguous; the weight packed as [cin][tap][cout_pad], cout_pad 4, 16
+// or 64 (the kernel's channel block), zero in the padding. Conv taps are
+// ky * k + kx; the deconv's 16 are phase * 4 + a * 2 + b for output phase
+// (py, px), phase = 2 py + px, holding weight[ci, co, 3 - py - 2a,
+// 3 - px - 2b]: output (2m + py, 2n + px) is then a 2x2 stride-1 conv over
+// input (m - 1 + py + a, n - 1 + px + b) (the tap algebra of
+// ops/s2d.py:211-232). Sums in float32: plain FMAs, no TF32, the meaning of
+// cuDNN's float32 conv with TF32 off.
 //
 // Bound on the H100: float32 FMAs on the CUDA cores. At Sintel size
 // (1024x448, batch 4) the twelve head layers of FlowNet2 do about 272 GFLOP
 // and move about 4 GB, so the 67 TFLOP/s float32 peak, not the 3.35 TB/s of
-// memory, sets the bound (about 4 ms). TF32 tensor cores stay unused: the
-// port's float32 path is exact float32.
+// memory, sets the bound (about 4.1 ms). A warp scheduler issues one
+// instruction a cycle and an FMA instruction fills the cores for one, so
+// every other instruction in the inner loop (shared loads, addresses)
+// costs FMA rate; so does any time a block waits on its loads.
+//
+// Design. A block of 8 warps computes a tile of output rows by columns for
+// all cout_pad channels of one image, split into G channel groups of CO
+// channels. A warp holds one group, so its weight loads are broadcasts; its
+// lanes are 32 neighbouring output columns, so its input loads are
+// neighbouring addresses. Each thread keeps RY rows x PX columns (32
+// apart) x CO channels of float32 sums: per tap, RY PX input loads and CO/4
+// 16-byte weight loads feed RY PX CO FMAs (64 at the 16- and 64-channel
+// layers). The deconv's groups are its four output phases.
+// Input channels run in chunks of CK through a ring of two shared-memory
+// stages filled by cp.async: while the block computes one chunk, the next
+// one's input patch (with its halo) and weights are in flight. The packed
+// weights make a chunk's weights one contiguous run, copied 16 bytes at a
+// time; the patch is copied 4 bytes at a time along NCHW rows (neighbouring
+// threads on neighbouring columns), and the copy's zero fill (src-size 0)
+// writes the conv's padding outside the image. At stride 2 a patch row is
+// stored as its even and then its odd columns, so the 32 lanes, which read
+// every second column, hit 32 distinct banks. CK is the largest power of
+// two up to 16 whose stage fits 48 KB, so two 256-thread blocks (at most
+// 128 registers a thread) share an SM. Staging divides only by
+// compile-time constants.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTX = 32;  // threads along a tile row: one warp
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTX = 32;  // output columns of a warp
+constexpr int kStages = 2;
+constexpr int kStageBytes = 48 * 1024;  // largest stage, so two blocks fit an SM
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte copy; zero-filled (nothing read) where !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 template <int CO>
 __device__ __forceinline__ void load_weights(float (&wv)[CO], const float* p) {
-  if constexpr (CO % 4 == 0) {
 #pragma unroll
-    for (int j = 0; j < CO; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + j);
-      wv[j] = v.x;
-      wv[j + 1] = v.y;
-      wv[j + 2] = v.z;
-      wv[j + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < CO; ++j) wv[j] = p[j];
+  for (int j = 0; j < CO; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + j);
+    wv[j] = v.x;
+    wv[j + 1] = v.y;
+    wv[j + 2] = v.z;
+    wv[j + 3] = v.w;
   }
 }
 
@@ -67,269 +103,219 @@ __device__ __forceinline__ float epilogue(float v, float bias, bool leaky) {
   return (leaky && v < 0.f) ? v * 0.1f : v;
 }
 
-// COB output channels per block (Cout <= COB, the rest masked), in G groups
-// of CO = COB / G per thread; TY = 256 / (32 G) output rows by 32 PX columns
-// per tile; CK input channels per staged chunk.
-template <int K, int S, int COB, int G, int PX, int CK>
-struct ConvGeom {
-  static constexpr int CO = COB / G;
-  static constexpr int TY = kThreads / (kTX * G);
+// DECONV false: a K x K conv at stride S over a tile of TY x TW outputs.
+// DECONV true: the k4/s2 deconv, K = 2 taps a side per phase, S = 1, over
+// TY x TW half-resolution positions in each of the four phases (G = 4).
+// COB channels (the packed cout_pad) in G groups of CO; RY x PX outputs a
+// thread.
+template <int K, int S, bool DECONV, int COB, int G, int RY, int PX>
+struct Geom {
+  static constexpr int STRIDE = S;
+  static constexpr int CO = DECONV ? COB : COB / G;  // a deconv phase has every channel
+  static constexpr int WG = kWarps / G;               // warps per group
+  static constexpr int TY = WG * RY;
   static constexpr int TW = kTX * PX;
-  static constexpr int IR = (TY - 1) * S + K;
-  static constexpr int IC = (TW - 1) * S + K;
-  static constexpr int W_FLOATS = CK * K * K * COB;
-  static constexpr int X_FLOATS = CK * IR * IC;
-  static constexpr size_t SMEM = (W_FLOATS + X_FLOATS) * sizeof(float);
+  static constexpr int TAPS = DECONV ? 16 : K * K;  // packed taps per input channel
+  static constexpr int IR = DECONV ? TY + 2 : (TY - 1) * S + K;
+  static constexpr int IC = DECONV ? TW + 2 : (TW - 1) * S + K;
+  static constexpr int ICP = (IC + S - 1) / S;  // columns of one plane (stride 2: even, then odd)
+  static constexpr int ROW = S * ICP;           // floats from one patch row to the next
+  static constexpr int X_CH = IR * ROW;
+  static constexpr int W_CH = TAPS * COB;
+  static constexpr int CH_BYTES = 4 * (X_CH + W_CH);
+  static constexpr int CK = 16 * CH_BYTES <= kStageBytes ? 16
+                            : 8 * CH_BYTES <= kStageBytes ? 8
+                            : 4 * CH_BYTES <= kStageBytes ? 4
+                            : 2 * CH_BYTES <= kStageBytes ? 2 : 1;
+  static constexpr int W_FLOATS = CK * W_CH;
+  static constexpr int STAGE = (W_FLOATS + CK * X_CH + 3) / 4 * 4;  // floats, 16-byte multiple
+  static constexpr size_t SMEM = static_cast<size_t>(kStages) * STAGE * sizeof(float);
+  static_assert(CO * (DECONV ? 1 : G) == COB && CO % 4 == 0 && kWarps % G == 0, "groups of whole float4s");
 };
 
-template <int K, int S, int COB, int G, int PX, int CK>
-__global__ void __launch_bounds__(kThreads)
-head_conv_kernel(const float* __restrict__ x, const float* __restrict__ weight, const float* __restrict__ bias,
-                 float* __restrict__ out, int cin, int h, int w, int cout, int ho, int wo, bool leaky) {
-  using Geo = ConvGeom<K, S, COB, G, PX, CK>;
-  constexpr int CO = Geo::CO, TY = Geo::TY, TW = Geo::TW, IR = Geo::IR, IC = Geo::IC;
+// Issue the cp.async copies of input channels c0 .. c0 + nc - 1 into one
+// stage: the chunk's packed weights, then its patch.
+template <class Geo>
+__device__ __forceinline__ void stage_chunk(float* st, const float* __restrict__ xb, const float* __restrict__ wp,
+                                            int c0, int nc, int iy0, int ix0, int h, int w, long long hw) {
+  const int tid = threadIdx.x;
+  const float* wsrc = wp + static_cast<long long>(c0) * Geo::W_CH;
+  for (int i = tid; i < nc * Geo::W_CH / 4; i += kThreads) cp_async16(st + 4 * i, wsrc + 4 * i);
+  float* xs = st + Geo::W_FLOATS;
+  constexpr int PATCH = Geo::IR * Geo::IC;
+  for (int i = tid; i < nc * PATCH; i += kThreads) {
+    const int ci = i / PATCH;
+    const int rc = i - ci * PATCH;
+    const int r = rc / Geo::IC;
+    const int c = rc - r * Geo::IC;
+    const int gy = iy0 + r, gx = ix0 + c;
+    const bool valid = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const float* src = valid ? xb + (c0 + ci) * hw + static_cast<long long>(gy) * w + gx : xb;
+    const int col = Geo::STRIDE == 2 ? (c & 1) * Geo::ICP + (c >> 1) : c;
+    cp_async4(xs + ci * Geo::X_CH + r * Geo::ROW + col, src, valid);
+  }
+}
+
+template <int K, int S, bool DECONV, int COB, int G, int RY, int PX>
+__global__ void __launch_bounds__(kThreads, 2)
+head_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wpacked, const float* __restrict__ bias,
+                     float* __restrict__ out, int cin, int h, int w, int cout, int ho, int wo, bool leaky) {
+  using Geo = Geom<K, S, DECONV, COB, G, RY, PX>;
+  constexpr int CO = Geo::CO, CK = Geo::CK, ROW = Geo::ROW;
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [CK][K*K][COB]
-  float* xs = ws + Geo::W_FLOATS;                // [CK][IR][IC]
+  float* smem = reinterpret_cast<float*>(smem4);  // kStages x ([CK][TAPS][COB] weights, [CK][IR][ROW] patch)
 
   const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = (tid / kTX) % TY;
-  const int g = tid / (kTX * TY);
+  const int tx = tid & 31, warp = tid >> 5;
+  const int g = warp / Geo::WG;           // channel group (deconv: output phase)
+  const int wy = warp - g * Geo::WG;      // the warp's rows within the tile: wy * RY ..
   const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * TY;
-  const int ox0 = blockIdx.x * TW;
-  const int iy0 = oy0 * S - K / 2;
-  const int ix0 = ox0 * S - K / 2;
+  const int row0 = blockIdx.y * Geo::TY;  // (half-resolution, for the deconv) output tile origin
+  const int col0 = blockIdx.x * Geo::TW;
+  const int iy0 = DECONV ? row0 - 1 : row0 * S - K / 2;  // patch origin in the input
+  const int ix0 = DECONV ? col0 - 1 : col0 * S - K / 2;
   const long long hw = static_cast<long long>(h) * w;
   const float* xb = x + static_cast<long long>(b) * cin * hw;
 
-  float acc[PX][CO];
-#pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int j = 0; j < CO; ++j) acc[p][j] = 0.f;
+  // the thread's patch offset at tap (0, 0) of its first output, and its
+  // first packed tap and weight column
+  const int py = DECONV ? g >> 1 : 0, px = DECONV ? g & 1 : 0;
+  const int x_off = (DECONV ? wy * RY + py : wy * RY * S) * ROW + tx + px;
+  const int w_off = (DECONV ? g * 4 * COB : g * CO);
 
-  for (int c0 = 0; c0 < cin; c0 += CK) {
-    __syncthreads();  // the previous chunk has been read
-    for (int i = tid; i < Geo::X_FLOATS; i += kThreads) {
-      const int ci = i / (IR * IC);
-      const int r = (i / IC) % IR;
-      const int c = i % IC;
-      const int gy = iy0 + r, gx = ix0 + c;
-      float v = 0.f;
-      if (c0 + ci < cin && gy >= 0 && gy < h && gx >= 0 && gx < w)
-        v = xb[(c0 + ci) * hw + static_cast<long long>(gy) * w + gx];
-      xs[i] = v;
-    }
-    for (int i = tid; i < Geo::W_FLOATS; i += kThreads) {
-      const int co = i % COB;
-      const int tap = (i / COB) % (K * K);
-      const int ci = i / (COB * K * K);
-      float v = 0.f;
-      if (co < cout && c0 + ci < cin)
-        v = weight[(static_cast<long long>(co) * cin + c0 + ci) * (K * K) + tap];
-      ws[i] = v;
-    }
-    __syncthreads();
+  float acc[RY][PX][CO];
+#pragma unroll
+  for (int r = 0; r < RY; ++r)
+#pragma unroll
+    for (int p = 0; p < PX; ++p)
+#pragma unroll
+      for (int j = 0; j < CO; ++j) acc[r][p][j] = 0.f;
+
+  const int nchunks = (cin + CK - 1) / CK;
+  // prologue: the first kStages - 1 chunks in flight
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks)
+      stage_chunk<Geo>(smem + s * Geo::STAGE, xb, wpacked, s * CK, min(CK, cin - s * CK), iy0, ix0, h, w, hw);
+    cp_async_commit();
+  }
 #pragma unroll 1
-    for (int ci = 0; ci < CK; ++ci) {
-      const float* xr = xs + ci * IR * IC + ty * S * IC + tx * S;
-      const float* wr = ws + ci * K * K * COB + g * CO;
+  for (int k = 0; k < nchunks; ++k) {
+    const int next = k + kStages - 1;  // into the stage chunk k - 1 used, read by now
+    if (next < nchunks)
+      stage_chunk<Geo>(smem + (next % kStages) * Geo::STAGE, xb, wpacked, next * CK, min(CK, cin - next * CK),
+                       iy0, ix0, h, w, hw);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // chunk k has landed (this thread's copies)
+    __syncthreads();               // ... and every thread's
+
+    const float* ws = smem + (k % kStages) * Geo::STAGE + w_off;
+    const float* xs = smem + (k % kStages) * Geo::STAGE + Geo::W_FLOATS + x_off;
+    const int nc = min(CK, cin - k * CK);
+#pragma unroll 1
+    for (int ci = 0; ci < nc; ++ci) {
+      const float* xc = xs + ci * Geo::X_CH;
+      const float* wc = ws + ci * Geo::W_CH;
 #pragma unroll
       for (int ky = 0; ky < K; ++ky) {
 #pragma unroll
         for (int kx = 0; kx < K; ++kx) {
           float wv[CO];
-          load_weights<CO>(wv, wr + (ky * K + kx) * COB);
+          load_weights<CO>(wv, wc + (ky * K + kx) * COB);
+          // stride 2: tap column kx of output column c is patch column 2c + kx,
+          // in plane kx & 1 at position c + kx / 2
+          const int dcol = S == 2 ? (kx & 1) * Geo::ICP + (kx >> 1) : kx;
 #pragma unroll
-          for (int p = 0; p < PX; ++p) {
-            const float xv = xr[ky * IC + p * kTX * S + kx];
+          for (int r = 0; r < RY; ++r) {
 #pragma unroll
-            for (int j = 0; j < CO; ++j) acc[p][j] = fmaf(xv, wv[j], acc[p][j]);
+            for (int p = 0; p < PX; ++p) {
+              const float xv = xc[(r * S + ky) * ROW + dcol + p * kTX];
+#pragma unroll
+              for (int j = 0; j < CO; ++j) acc[r][p][j] = fmaf(xv, wv[j], acc[r][p][j]);
+            }
           }
         }
       }
     }
+    __syncthreads();  // the stage is read; the next iteration refills it
   }
 
-  const int oy = oy0 + ty;
-  if (oy >= ho) return;
   const long long howo = static_cast<long long>(ho) * wo;
-  float* ob = out + static_cast<long long>(b) * cout * howo + static_cast<long long>(oy) * wo;
+  float* ob = out + static_cast<long long>(b) * cout * howo;
 #pragma unroll
   for (int j = 0; j < CO; ++j) {
-    const int co = g * CO + j;
+    const int co = DECONV ? j : g * CO + j;
     if (co >= cout) continue;
     const float bv = bias[co];
 #pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int ox = ox0 + tx + p * kTX;
-      if (ox < wo) ob[co * howo + ox] = epilogue(acc[p][j], bv, leaky);
-    }
-  }
-}
-
-// The k4/s2/p1 deconv: a tile of TY half-resolution rows by 32 PX columns,
-// all four phases (one per group of TY warps), all COB output channels.
-template <int COB, int PX, int CK>
-struct DeconvGeom {
-  static constexpr int TY = kThreads / (kTX * 4);
-  static constexpr int TW = kTX * PX;
-  static constexpr int IR = TY + 2;
-  static constexpr int IC = TW + 2;
-  static constexpr int W_FLOATS = CK * 16 * COB;
-  static constexpr int X_FLOATS = CK * IR * IC;
-  static constexpr size_t SMEM = (W_FLOATS + X_FLOATS) * sizeof(float);
-};
-
-template <int COB, int PX, int CK>
-__global__ void __launch_bounds__(kThreads)
-head_deconv_kernel(const float* __restrict__ x, const float* __restrict__ weight, const float* __restrict__ bias,
-                   float* __restrict__ out, int cin, int h, int w, int cout, bool leaky) {
-  using Geo = DeconvGeom<COB, PX, CK>;
-  constexpr int TY = Geo::TY, TW = Geo::TW, IR = Geo::IR, IC = Geo::IC;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [CK][16][COB]
-  float* xs = ws + Geo::W_FLOATS;                // [CK][IR][IC]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = (tid / kTX) % TY;
-  const int phase = tid / (kTX * TY);
-  const int py = phase >> 1, px = phase & 1;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * TY;
-  const int n0 = blockIdx.x * TW;
-  const long long hw = static_cast<long long>(h) * w;
-  const float* xb = x + static_cast<long long>(b) * cin * hw;
-
-  float acc[PX][COB];
+    for (int r = 0; r < RY; ++r) {
+      const int m = row0 + wy * RY + r;  // (half-resolution) output row
+      const int oy = DECONV ? 2 * m + py : m;
+      if (oy >= ho) continue;
 #pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int j = 0; j < COB; ++j) acc[p][j] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += CK) {
-    __syncthreads();
-    for (int i = tid; i < Geo::X_FLOATS; i += kThreads) {
-      const int ci = i / (IR * IC);
-      const int r = (i / IC) % IR;
-      const int c = i % IC;
-      const int gy = m0 - 1 + r, gx = n0 - 1 + c;
-      float v = 0.f;
-      if (c0 + ci < cin && gy >= 0 && gy < h && gx >= 0 && gx < w)
-        v = xb[(c0 + ci) * hw + static_cast<long long>(gy) * w + gx];
-      xs[i] = v;
-    }
-    for (int i = tid; i < Geo::W_FLOATS; i += kThreads) {
-      const int co = i % COB;
-      const int tap = (i / COB) % 16;
-      const int ci = i / (COB * 16);
-      float v = 0.f;
-      if (co < cout && c0 + ci < cin)
-        v = weight[(static_cast<long long>(c0 + ci) * cout + co) * 16 + tap];
-      ws[i] = v;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int ci = 0; ci < CK; ++ci) {
-      const float* xr = xs + ci * IR * IC + (ty + py) * IC + tx + px;
-      const float* wr = ws + ci * 16 * COB;
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int bb = 0; bb < 2; ++bb) {
-          float wv[COB];
-          load_weights<COB>(wv, wr + ((3 - py - 2 * a) * 4 + (3 - px - 2 * bb)) * COB);
-#pragma unroll
-          for (int p = 0; p < PX; ++p) {
-            const float xv = xr[a * IC + p * kTX + bb];
-#pragma unroll
-            for (int j = 0; j < COB; ++j) acc[p][j] = fmaf(xv, wv[j], acc[p][j]);
-          }
-        }
+      for (int p = 0; p < PX; ++p) {
+        const int n = col0 + tx + p * kTX;
+        const int ox = DECONV ? 2 * n + px : n;
+        if (ox < wo) ob[co * howo + static_cast<long long>(oy) * wo + ox] = epilogue(acc[r][p][j], bv, leaky);
       }
     }
   }
-
-  const int m = m0 + ty;
-  if (m >= h) return;
-  const int ho = 2 * h, wo = 2 * w;
-  const long long howo = static_cast<long long>(ho) * wo;
-  float* ob = out + static_cast<long long>(b) * cout * howo + static_cast<long long>(2 * m + py) * wo + px;
-#pragma unroll
-  for (int j = 0; j < COB; ++j) {
-    if (j >= cout) continue;
-    const float bv = bias[j];
-#pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int n = n0 + tx + p * kTX;
-      if (n < w) ob[j * howo + 2 * n] = epilogue(acc[p][j], bv, leaky);
-    }
-  }
 }
 
-template <int K, int S, int COB, int G, int CK>
-int launch_conv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
-                int h, int w, int cout, int ho, int wo, bool leaky, cudaStream_t stream) {
-  constexpr int PX = 4;
-  using Geo = ConvGeom<K, S, COB, G, PX, CK>;
-  auto kernel = head_conv_kernel<K, S, COB, G, PX, CK>;
+template <int K, int S, bool DECONV, int COB, int G, int RY, int PX>
+int launch_f32(const void* x, const void* wpacked, const void* bias, void* out, int n, int cin, int h, int w,
+               int cout, int ho, int wo, bool leaky, cudaStream_t stream) {
+  using Geo = Geom<K, S, DECONV, COB, G, RY, PX>;
+  auto kernel = head_conv_f32_kernel<K, S, DECONV, COB, G, RY, PX>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(Geo::SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((wo + Geo::TW - 1) / Geo::TW, (ho + Geo::TY - 1) / Geo::TY, n);
+  // the grid walks the (half-resolution, for the deconv) output in tiles
+  const int rows = DECONV ? h : ho, cols = DECONV ? w : wo;
+  const dim3 grid((cols + Geo::TW - 1) / Geo::TW, (rows + Geo::TY - 1) / Geo::TY, n);
   kernel<<<grid, kThreads, Geo::SMEM, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(weight), static_cast<const float*>(bias),
+      static_cast<const float*>(x), static_cast<const float*>(wpacked), static_cast<const float*>(bias),
       static_cast<float*>(out), cin, h, w, cout, ho, wo, leaky);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Channel block and thread tile per Cout: 64 channels in four groups of 16
+// (2 rows x 2 columns a thread); 16 channels in one group (1 row x 4
+// columns); 4 channels (2 rows x 4 columns). The packed cout_pad is the
+// block.
 template <int K, int S>
-int dispatch_cout(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
-                  int h, int w, int cout, int ho, int wo, bool leaky, cudaStream_t stream) {
-  constexpr int CK = K == 7 ? 4 : 8;
-  if (cout <= 2)
-    return launch_conv<K, S, 2, 1, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+int dispatch_conv_cout(const void* x, const void* wpacked, const void* bias, void* out, int n, int cin, int h,
+                       int w, int cout, int ho, int wo, bool leaky, cudaStream_t stream) {
+  if (cout <= 4)
+    return launch_f32<K, S, false, 4, 1, 2, 4>(x, wpacked, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   if (cout <= 16)
-    return launch_conv<K, S, 16, 1, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
-  return launch_conv<K, S, 64, 4, CK>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return launch_f32<K, S, false, 16, 1, 1, 4>(x, wpacked, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+  return launch_f32<K, S, false, 64, 4, 2, 2>(x, wpacked, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
 }
 
-int dispatch_conv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
-                  int h, int w, int cout, int k, int stride, bool leaky, cudaStream_t stream) {
+int dispatch_conv(const void* x, const void* wpacked, const void* bias, void* out, int n, int cin, int h, int w,
+                  int cout, int k, int stride, bool leaky, cudaStream_t stream) {
   const int ho = (h + 2 * (k / 2) - k) / stride + 1;
   const int wo = (w + 2 * (k / 2) - k) / stride + 1;
   if (k == 3 && stride == 1)
-    return dispatch_cout<3, 1>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return dispatch_conv_cout<3, 1>(x, wpacked, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   if (k == 3 && stride == 2)
-    return dispatch_cout<3, 2>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return dispatch_conv_cout<3, 2>(x, wpacked, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   if (k == 7 && stride == 2)
-    return dispatch_cout<7, 2>(x, weight, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
+    return dispatch_conv_cout<7, 2>(x, wpacked, bias, out, n, cin, h, w, cout, ho, wo, leaky, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int COB>
-int launch_deconv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
-                  int h, int w, int cout, bool leaky, cudaStream_t stream) {
-  constexpr int PX = 4, CK = 8;
-  using Geo = DeconvGeom<COB, PX, CK>;
-  auto kernel = head_deconv_kernel<COB, PX, CK>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(Geo::SMEM));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((w + Geo::TW - 1) / Geo::TW, (h + Geo::TY - 1) / Geo::TY, n);
-  kernel<<<grid, kThreads, Geo::SMEM, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(weight), static_cast<const float*>(bias),
-      static_cast<float*>(out), cin, h, w, cout, leaky);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch_deconv(const void* x, const void* weight, const void* bias, void* out, int n, int cin,
-                    int h, int w, int cout, bool leaky, cudaStream_t stream) {
-  if (cout <= 2) return launch_deconv<2>(x, weight, bias, out, n, cin, h, w, cout, leaky, stream);
-  if (cout <= 16) return launch_deconv<16>(x, weight, bias, out, n, cin, h, w, cout, leaky, stream);
+// The deconv's four phases are its groups: a phase's 16 (or 4) channels a
+// warp, 2 half-resolution rows x 2 columns (or 2 x 4) a thread.
+int dispatch_deconv(const void* x, const void* wpacked, const void* bias, void* out, int n, int cin, int h, int w,
+                    int cout, bool leaky, cudaStream_t stream) {
+  if (cout <= 4)
+    return launch_f32<2, 1, true, 4, 4, 2, 4>(x, wpacked, bias, out, n, cin, h, w, cout, 2 * h, 2 * w, leaky,
+                                              stream);
+  if (cout <= 16)
+    return launch_f32<2, 1, true, 16, 4, 2, 2>(x, wpacked, bias, out, n, cin, h, w, cout, 2 * h, 2 * w, leaky,
+                                               stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -342,7 +328,7 @@ int head_deconv_mma(const void* x, const void* wpacked, const void* bias, void* 
                     int cout, bool leaky, cudaStream_t stream);
 
 // k x k conv, pad k/2: (k, stride) in {(3, 1), (3, 2), (7, 2)}, 1 <= Cout <= 64.
-// float32: weight (Cout, Cin, k, k); bfloat16: weight packed as [k*k][cout_pad][cin_pad].
+// float32: weight packed as [cin][k*k][cout_pad]; bfloat16: as [k*k][cout_pad][cin_pad].
 extern "C" int fn2_head_conv(const void* x, const void* weight, const void* bias, void* out, int n,
                              int cin, int h, int w, int cout, int k, int stride, int leaky,
                              int dtype, void* stream) {
@@ -356,7 +342,7 @@ extern "C" int fn2_head_conv(const void* x, const void* weight, const void* bias
 }
 
 // k4/s2/p1 deconv: (N, Cin, H, W) -> (N, Cout, 2H, 2W), 1 <= Cout <= 16.
-// float32: weight (Cin, Cout, 4, 4); bfloat16: weight packed as [16][cout_pad][cin_pad].
+// float32: weight packed as [cin][16][cout_pad]; bfloat16: as [16][cout_pad][cin_pad].
 extern "C" int fn2_head_deconv(const void* x, const void* weight, const void* bias, void* out, int n,
                                int cin, int h, int w, int cout, int leaky, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

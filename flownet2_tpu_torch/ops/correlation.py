@@ -136,10 +136,11 @@ def correlation_cuda(
     """Launch the CUDA kernel (csrc/correlation.cu) on the current stream.
 
     FlowNet configuration only (multiply, k=1, stride1=1, pad=max_displacement).
-    Takes f1, f2 (N, H, W, C) channels-last, contiguous, float32 or bfloat16,
-    on one CUDA device; returns (N, gw**2, H, W) in their dtype. Raises on
-    anything else, and on C > 12288, which the kernel refuses (one column's
-    f1 vector must fit its shared memory).
+    Takes f1, f2 (N, H, W, C) channels-last, contiguous, float32 or bfloat16
+    (then with C even: the kernel copies 4 bytes at a time), on one CUDA
+    device; returns (N, gw**2, H, W) in their dtype. Raises on anything else,
+    and where a block's staged rows (the whole width, with its halo) do not
+    fit shared memory: W above about 900.
     """
     if f1.device.type != "cuda" or f2.device != f1.device:
         raise ValueError(f"correlation_cuda needs CUDA tensors on one device, got {f1.device} / {f2.device}")
@@ -154,6 +155,8 @@ def correlation_cuda(
     n, h, w, c = f1.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"correlation_cuda: N={n} and H={h} must each be <= 65535 (grid limits)")
+    if f1.dtype == torch.bfloat16 and c % 2:
+        raise ValueError(f"correlation_cuda: bfloat16 needs an even channel count, got C={c}")
     gw = 2 * (max_displacement // stride2) + 1
     out = torch.empty((n, gw * gw, h, w), dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:

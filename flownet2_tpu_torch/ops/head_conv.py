@@ -12,7 +12,8 @@ matrix unit; the port computes the same function in the plain NCHW layout:
 
 each followed by leaky ReLU (slope 0.1) when ``leaky``. A CUDA tensor goes
 to an autograd Function whose forward is the hand-written kernel (float32:
-CUDA cores, csrc/head_conv.cu; bfloat16: tensor cores, csrc/head_conv_tc.cu,
+CUDA cores, csrc/head_conv.cu, on weights laid out by
+:func:`pack_head_weight_f32`; bfloat16: tensor cores, csrc/head_conv_tc.cu,
 on weights laid out by :func:`pack_head_weight`) and whose backward is
 autograd through the plain version, as the JAX custom VJP runs the XLA
 formulation backward (ops/s2d.py:345-357,375-385); a CPU tensor goes to the
@@ -36,6 +37,8 @@ HEAD_KERNEL_MIN_WIDTH = 512
 # the bfloat16 kernel's widths: input channels per k16 step, output channels
 # per n tile group (one, two or eight n8 tiles)
 PACK_CIN, PACK_COUTS = 16, (8, 16, 64)
+# the float32 kernel's channel blocks
+PACK_COUTS_F32 = (4, 16, 64)
 
 
 def use_head_kernel(device_type: str, full_res_width: int) -> bool:
@@ -109,6 +112,26 @@ def pack_head_weight(weight: torch.Tensor, *, deconv: bool) -> torch.Tensor:
     return packed
 
 
+def pack_head_weight_f32(weight: torch.Tensor, *, deconv: bool) -> torch.Tensor:
+    """The float32 kernel's weight layout, (cin, taps, cout_pad), zero in the
+    padding: cout_pad is 4, 16 or 64 (the kernel's channel block), so that
+    one input channel chunk's weights are one contiguous run of 16-byte
+    units. Taps are ordered as in :func:`pack_head_weight` (deconv: phase
+    major). The matrix (cin * taps, cout_pad) that this reshapes to, times
+    the im2col rows in channel-major, tap-minor order, is the layer before
+    bias. Packed anew on every call: training changes the weights."""
+    if deconv:
+        cin, cout = weight.shape[:2]
+        taps = weight.flip(2, 3).reshape(cin, cout, 2, 2, 2, 2).permute(0, 3, 5, 2, 4, 1)  # ci, py, px, a, b, co
+    else:
+        cout, cin, k, _ = weight.shape
+        taps = weight.permute(1, 2, 3, 0)  # ci, ky, kx, co
+    cout_pad = next(c for c in PACK_COUTS_F32 if c >= cout)
+    packed = weight.new_zeros((cin, taps.shape[1:-1].numel(), cout_pad))
+    packed.view(*taps.shape[:-1], cout_pad)[..., :cout] = taps
+    return packed
+
+
 def vjp_of_plain(plain, inputs, needs, grads, **kwargs):
     """Autograd through ``plain`` at ``inputs`` with output cotangents
     ``grads``: the gradients of the inputs flagged in ``needs``, None for
@@ -174,8 +197,9 @@ def head_conv2d_cuda(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, stride: int, leaky: bool
 ) -> torch.Tensor:
     """Launch the conv kernel on the current stream: float32 on the CUDA
-    cores (csrc/head_conv.cu), bfloat16 on the tensor cores
-    (csrc/head_conv_tc.cu, weight packed by :func:`pack_head_weight`).
+    cores (csrc/head_conv.cu, weight packed by :func:`pack_head_weight_f32`),
+    bfloat16 on the tensor cores (csrc/head_conv_tc.cu, weight packed by
+    :func:`pack_head_weight`).
 
     Takes contiguous CUDA tensors on one device, all float32 or all
     bfloat16: x (N,Cin,H,W), weight (Cout,Cin,k,k) with (k, stride) in
@@ -195,8 +219,8 @@ def head_conv2d_cuda(
     out = torch.empty((n, cout, ho, wo), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if dtype == torch.bfloat16:
-        weight = pack_head_weight(weight, deconv=False)
+    pack = pack_head_weight if dtype == torch.bfloat16 else pack_head_weight_f32
+    weight = pack(weight, deconv=False)
     status = _build.library().fn2_head_conv(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, cin, h, w, cout, k, stride,
         int(leaky), _build.DTYPE_CODES[dtype], torch.cuda.current_stream(x.device).cuda_stream,
@@ -211,8 +235,9 @@ head_conv2d_cuda.launches = 0  # kernel launches since the last reset
 
 def head_deconv2d_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *, leaky: bool) -> torch.Tensor:
     """Launch the deconv kernel on the current stream: float32 on the CUDA
-    cores (csrc/head_conv.cu), bfloat16 on the tensor cores
-    (csrc/head_conv_tc.cu, weight packed by :func:`pack_head_weight`).
+    cores (csrc/head_conv.cu, weight packed by :func:`pack_head_weight_f32`),
+    bfloat16 on the tensor cores (csrc/head_conv_tc.cu, weight packed by
+    :func:`pack_head_weight`).
 
     Takes contiguous CUDA tensors on one device, all float32 or all
     bfloat16: x (N,Cin,H,W), weight (Cin,Cout,4,4) with Cout <= 16, bias
@@ -229,8 +254,8 @@ def head_deconv2d_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
     out = torch.empty((n, cout, 2 * h, 2 * w), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if dtype == torch.bfloat16:
-        weight = pack_head_weight(weight, deconv=True)
+    pack = pack_head_weight if dtype == torch.bfloat16 else pack_head_weight_f32
+    weight = pack(weight, deconv=True)
     status = _build.library().fn2_head_deconv(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, cin, h, w, cout, int(leaky),
         _build.DTYPE_CODES[dtype], torch.cuda.current_stream(x.device).cuda_stream,

@@ -23,11 +23,16 @@ prints:
     python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4 --fusion-head
     python3 scripts/profile_slice.py --train              # train steps, 448x320 b8
     python3 scripts/profile_slice.py --head-layers        # K3 per layer at Sintel b4
+    python3 scripts/profile_slice.py --corr               # correlation forward, 448x320 b8 and Sintel b4
 
 With ``--head-layers`` it runs K3's wrappers on each of its Sintel b4 layer
 shapes (``chip_smoke.HEAD_GEOMETRIES``) and prints, per call, the device
 time of the head kernel, of everything else the wrapper launches (the
 bfloat16 route's weight packing) and of cuDNN's call on the same tensors.
+With ``--corr`` it runs the correlation forward's wrapper
+(``correlation_cuda``, FlowNetC's md 20 / stride2 2 on channels-last
+features) at the 448x320 b8 and Sintel b4 feature shapes and prints its
+device time per call.
 
 TF32 is off, as in chip_smoke.py. Imports neither jax nor the JAX package.
 """
@@ -65,7 +70,7 @@ KERNEL_PARTS = {
     "flow_warp kernel": ("flow_warp_kernel",),
     "flow_warp backward kernel": ("flow_warp_backward_kernel",),
     HEAD_PART: (
-        "head_conv_kernel", "head_deconv_kernel", "head_conv_mma_kernel"),
+        "head_conv_f32_kernel", "head_conv_mma_kernel"),
     "fusion_head kernel (K4)": ("fusion_head_kernel",),
     "cuDNN NCHW->NHWC transposes": ("nchwToNhwc",),
     "cuDNN NHWC->NCHW transposes": ("nhwcToNchw",),
@@ -168,9 +173,10 @@ def profile_train(args, objective: str, dev: torch.device) -> str:
     return profile_run(args, f"train {objective} f32", lambda: solver.step(batch))
 
 
-def _device_us(run) -> dict[str, float]:
-    """Device time per call of ``run`` in us, split into the head kernels
-    and the rest, over ``STEPS`` calls after ``WARMUP``."""
+def _device_us(run, patterns) -> dict[str, float]:
+    """Device time per call of ``run`` in us, split into the kernels whose
+    names contain one of ``patterns`` and the rest, over ``STEPS`` calls
+    after ``WARMUP``."""
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
@@ -178,11 +184,11 @@ def _device_us(run) -> dict[str, float]:
         for _ in range(STEPS):
             run()
         torch.cuda.synchronize()
-    out = {"head kernel": 0.0, "other": 0.0}
+    out = {"kernel": 0.0, "other": 0.0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            head = any(p in e.name for p in KERNEL_PARTS[HEAD_PART])
-            out["head kernel" if head else "other"] += e.time_range.elapsed_us() / STEPS
+            mine = any(p in e.name for p in patterns)
+            out["kernel" if mine else "other"] += e.time_range.elapsed_us() / STEPS
     return out
 
 
@@ -201,17 +207,35 @@ def profile_head_layers(args, dev: torch.device) -> str:
         b32 = torch.randn(w_shape[1] if stride == 0 else w_shape[0], generator=g)
         for dtype in args.dtypes:
             x, w, b = (t.to(dev, getattr(torch, dtype)) for t in (x32, w32, b32))
+            head = KERNEL_PARTS[HEAD_PART]
             if stride == 0:
-                ours = _device_us(lambda: head_deconv2d_cuda(x, w, b, leaky=leaky))
-                lib = _device_us(lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1))
+                ours = _device_us(lambda: head_deconv2d_cuda(x, w, b, leaky=leaky), head)
+                lib = _device_us(lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1), head)
             else:
-                ours = _device_us(lambda: head_conv2d_cuda(x, w, b, stride=stride, leaky=leaky))
-                lib = _device_us(lambda: F.conv2d(x, w, b, stride=stride, padding=w_shape[-1] // 2))
-            lines.append(f"{label} {dtype}: head kernel {ours['head kernel'] / 1e3:.4f} ms, other "
-                         f"{ours['other'] / 1e3:.4f} ms, cuDNN call {(lib['head kernel'] + lib['other']) / 1e3:.4f} "
+                ours = _device_us(lambda: head_conv2d_cuda(x, w, b, stride=stride, leaky=leaky), head)
+                lib = _device_us(lambda: F.conv2d(x, w, b, stride=stride, padding=w_shape[-1] // 2), head)
+            lines.append(f"{label} {dtype}: head kernel {ours['kernel'] / 1e3:.4f} ms, other "
+                         f"{ours['other'] / 1e3:.4f} ms, cuDNN call {(lib['kernel'] + lib['other']) / 1e3:.4f} "
                          f"ms per call; {count} per forward")
             del x, w, b
         torch.cuda.empty_cache()
+    return "\n".join(lines)
+
+
+def profile_corr(args, dev: torch.device) -> str:
+    """The correlation forward's kernel at FlowNetC's two feature shapes."""
+    from chip_smoke import CORR_SHAPE, CORR_SINTEL_SHAPE
+    from flownet2_tpu_torch.ops.correlation import correlation_cuda
+
+    g = torch.Generator().manual_seed(SEED)
+    lines = []
+    for n, c, h, w in (CORR_SHAPE, CORR_SINTEL_SHAPE):
+        f1, f2 = (torch.randn(n, h, w, c, generator=g) for _ in range(2))
+        for dtype in args.dtypes:
+            a, b = (t.to(dev, getattr(torch, dtype)) for t in (f1, f2))
+            us = _device_us(lambda: correlation_cuda(a, b, max_displacement=20, stride2=2),
+                            KERNEL_PARTS["correlation kernel"])
+            lines.append(f"correlation {n}x{c}x{h}x{w} -> 441 {dtype}: kernel {us['kernel'] / 1e3:.4f} ms per call")
     return "\n".join(lines)
 
 
@@ -225,6 +249,7 @@ def main(argv=None) -> int:
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     p.add_argument("--fusion-head", action="store_true", help="FlowNet2 with the fused fusion-net decoder head")
     p.add_argument("--head-layers", action="store_true", help="K3 and cuDNN per head layer at Sintel b4")
+    p.add_argument("--corr", action="store_true", help="the correlation forward at 448x320 b8 and Sintel b4")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -239,6 +264,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.head_layers:
         print(profile_head_layers(args, dev))
+    elif args.corr:
+        print(profile_corr(args, dev))
     elif args.train:
         for objective in ("flownetc", "joint"):
             print(profile_train(args, objective, dev))

@@ -98,6 +98,47 @@ def test_correlation_kernel_matches_plain(cuda, dtype, rel_tol):
     assert err <= rel_tol * ref.float().abs().max().item()
 
 
+CORR_EDGE_CASES = [  # C, H, W, max_displacement, stride2: ragged widths, C not a chunk multiple
+    (100, 9, 57, 4, 1), (100, 9, 57, 20, 2), (64, 7, 33, 20, 1), (256, 12, 14, 4, 2), (8, 5, 130, 20, 2),
+]
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c,h,w,md,s2", CORR_EDGE_CASES)
+def test_correlation_kernel_edges_match_plain(cuda, c, h, w, md, s2, dtype, rel_tol):
+    """The forward at stride2 1 and 2, md 4 and 20, widths that cut its
+    4-column runs and planes (57, 33, 130), channel counts that are not a
+    multiple of its 16 (f32) or 32 (bf16) channel chunks (100, 8; 100 bf16
+    also takes its 4-byte copies); within rel_tol * max|ref|."""
+    g = torch.Generator().manual_seed(c + w)
+    f1 = torch.randn(2, c, h, w, generator=g).to(cuda, dtype)
+    f2 = torch.randn(2, c, h, w, generator=g).to(cuda, dtype)
+    kw = dict(max_displacement=md, kernel_size=1, stride1=1, stride2=s2, pad=md)
+    got = correlation(f1, f2, **kw)
+    torch.cuda.synchronize()
+    ref = correlation_plain(f1, f2, **kw)
+    gw = 2 * (md // s2) + 1
+    assert got.shape == ref.shape == (2, gw * gw, h, w) and got.dtype == dtype
+    _rel_close(got, ref, rel_tol)
+
+
+@pytest.mark.parametrize("c,h,w,md,s2", [(99, 9, 57, 4, 1), (64, 7, 33, 20, 2)])
+def test_correlation_autograd_matches_backward_plain(cuda, c, h, w, md, s2):
+    """Gradients through correlation on the card (forward kernel, backward
+    kernels) against correlation_backward_plain, float32, 1e-5 * max|ref|."""
+    g0 = torch.Generator().manual_seed(w)
+    f1, f2 = (torch.randn(2, c, h, w, generator=g0).to(cuda) for _ in range(2))
+    kw = dict(max_displacement=md, kernel_size=1, stride1=1, stride2=s2, pad=md)
+    gw = 2 * (md // s2) + 1
+    grad = torch.randn(2, gw * gw, h, w, generator=g0).to(cuda)
+    a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
+    got = torch.autograd.grad(correlation(a, b, **kw), (a, b), grad)
+    ref = correlation_backward_plain(f1, f2, grad, **kw)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape == (2, c, h, w)
+        _rel_close(x, y, 1e-5)
+
+
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     img, flow = _warp_inputs(cuda)
     with pytest.raises(TypeError):
@@ -113,6 +154,9 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
         correlation(f, f, max_displacement=2, pad=2, multiply=False)
     with pytest.raises(TypeError):
         correlation(f.half(), f.half(), max_displacement=2, pad=2)
+    odd = torch.zeros(1, 6, 6, 9, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="even"):
+        correlation_cuda(odd, odd, max_displacement=2, stride2=1)
 
 
 def test_flownet2_on_card_uses_kernels_and_matches_cpu(cuda):
@@ -337,6 +381,37 @@ def test_head_deconv_kernel_matches_plain(cuda, no_tf32, cin, cout, leaky, dtype
     ref = head_deconv2d_plain(x, w, b, leaky=leaky)
     assert got.shape == ref.shape == (2, cout, 38, 140) and got.dtype == dtype
     _rel_close(got, ref, rel)
+
+
+@pytest.mark.parametrize("hw", [(17, 65), (70, 257)], ids=["17x65", "70x257"])
+@pytest.mark.parametrize("k,stride,cin,cout", [
+    (7, 2, 3, 64), (3, 1, 11, 64), (3, 2, 162, 64), (3, 1, 82, 16), (7, 2, 11, 16), (3, 2, 162, 2), (3, 1, 3, 2),
+])
+def test_head_conv_f32_tile_and_chunk_edges(cuda, no_tf32, hw, k, stride, cin, cout):
+    """K3's float32 route where its tiles and channel chunks are cut: Cin
+    not a multiple of any chunk (3, 11, 82, 162), Cout 2, 16 and 64 (its
+    4-, 16- and 64-channel blocks), heights and widths that cut the tiles
+    (4 x 64, 8 x 128 and 16 x 128 outputs) at both strides; within 1e-5 *
+    max|ref| of the plain version."""
+    x, w, b = _conv_inputs(cuda, torch.float32, (2, cin, *hw), (cout, cin, k, k), seed=cin + cout)
+    got = head_conv2d_cuda(x, w, b, stride=stride, leaky=True)
+    torch.cuda.synchronize()
+    ref = head_conv2d_plain(x, w, b, stride=stride, leaky=True)
+    assert got.shape == ref.shape
+    _rel_close(got, ref, 1e-5)
+
+
+@pytest.mark.parametrize("hw", [(9, 65), (35, 129)], ids=["9x65", "35x129"])
+@pytest.mark.parametrize("cin,cout", [(3, 16), (11, 2), (82, 16), (162, 16), (162, 2)])
+def test_head_deconv_f32_tile_and_chunk_edges(cuda, no_tf32, hw, cin, cout):
+    """K3's float32 deconv where its tiles (4 x 64 and 4 x 128
+    half-resolution positions) and chunks (16 and 8 channels) are cut."""
+    x, w, b = _conv_inputs(cuda, torch.float32, (2, cin, *hw), (cin, cout, 4, 4), seed=cin, deconv=True)
+    got = head_deconv2d_cuda(x, w, b, leaky=False)
+    torch.cuda.synchronize()
+    ref = head_deconv2d_plain(x, w, b, leaky=False)
+    assert got.shape == ref.shape == (2, cout, 2 * hw[0], 2 * hw[1])
+    _rel_close(got, ref, 1e-5)
 
 
 def _fusion_net(device, dtype, seed=5):

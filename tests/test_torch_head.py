@@ -48,6 +48,7 @@ from flownet2_tpu_torch.ops.head_conv import (
     head_deconv2d_cuda,
     head_deconv2d_plain,
     pack_head_weight,
+    pack_head_weight_f32,
     use_head_kernel,
 )
 
@@ -222,6 +223,108 @@ def test_packed_head_weight_shape_and_padding(w_shape, deconv, packed_shape):
     assert not packed[:, cout:].any() and not packed[:, :, cin:].any()
     kept = packed[:, :cout, :cin].flatten().float().sort().values
     assert torch.equal(kept, weight.flatten().float().sort().values)
+
+
+# -- K3's float32 route: the packed weight layout --------------------------------
+
+
+def _packed_conv_f32(x, weight, bias, *, stride, leaky):
+    """The conv as the float32 kernel sums it: pack_head_weight_f32's
+    (cin * taps, cout_pad) matrix against the im2col rows in channel-major,
+    tap-minor order, then bias and leaky."""
+    cout, cin, k, _ = weight.shape
+    packed = pack_head_weight_f32(weight, deconv=False)
+    n, _, h, w = x.shape
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    cols = F.unfold(x, k, padding=k // 2, stride=stride)  # (n, cin * k * k, ho * wo)
+    out = packed.reshape(cin * k * k, -1).T @ cols
+    out = out[:, :cout].reshape(n, cout, ho, wo) + bias[:, None, None]
+    return torch_leaky_relu(out) if leaky else out
+
+
+def _packed_deconv_f32(x, weight, bias, *, leaky):
+    """The k4/s2 deconv as the float32 kernel sums it: per output phase, a
+    2x2 im2col over the input padded by one against the phase's four taps
+    of pack_head_weight_f32."""
+    cin, cout = weight.shape[:2]
+    packed = pack_head_weight_f32(weight, deconv=True)
+    n, _, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    out = x.new_zeros(n, cout, 2 * h, 2 * w)
+    for py in (0, 1):
+        for px in (0, 1):
+            phase = 2 * py + px
+            cols = F.unfold(xp[:, :, py:py + h + 1, px:px + w + 1], 2)  # (n, cin * 4, h * w)
+            wm = packed[:, 4 * phase:4 * phase + 4].reshape(cin * 4, -1).T
+            out[:, :, py::2, px::2] = (wm @ cols)[:, :cout].reshape(n, cout, h, w)
+    out = out + bias[:, None, None]
+    return torch_leaky_relu(out) if leaky else out
+
+
+F32_ATOL = 1e-5
+
+
+@pytest.mark.parametrize(
+    "k,stride,cin,cout,leaky",
+    [(3, 1, 11, 64, True), (3, 1, 82, 16, False), (3, 1, 16, 2, False), (3, 2, 64, 64, True),
+     (7, 2, 3, 64, True), (7, 2, 12, 64, True), (3, 1, 6, 40, True), (3, 2, 11, 3, False)],
+    ids=["3x3s1-11-64", "3x3s1-82-16", "3x3s1-16-2", "3x3s2-64-64", "7x7s2-3-64", "7x7s2-12-64", "3x3s1-6-40",
+         "3x3s2-11-3"],
+)
+def test_packed_head_weight_f32_conv_matches_plain_and_jax(rng, k, stride, cin, cout, leaky):
+    """pack_head_weight_f32's conv layout, as an im2col matmul in the
+    kernel's order, is the layer: against head_conv2d_plain and the JAX s2d
+    conv through matmul_conv_pallas (interpret mode), float32, 1e-5."""
+    x = rng.standard_normal((2, 18, 26, cin)).astype(np.float32)
+    w = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32)
+    weight = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
+    got = _packed_conv_f32(nchw(x), weight, torch.from_numpy(b), stride=stride, leaky=leaky)
+    plain = head_conv2d_plain(nchw(x), weight, torch.from_numpy(b), stride=stride, leaky=leaky)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=F32_ATOL, atol=F32_ATOL)
+    with mock.patch.object(jax_s2d_conv.pl, "pallas_call", _interpret):
+        ref = jax_s2d._conv2d_s2d_routed(jax_s2d.space_to_depth(jnp.asarray(x)), jnp.asarray(w), jnp.asarray(b),
+                                         stride, None)
+    ref = jax_s2d.depth_to_space(ref) if stride == 1 else ref
+    ref = np.asarray(jax_leaky_relu(ref) if leaky else ref)
+    np.testing.assert_allclose(nhwc(got), ref, rtol=F32_ATOL, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("cin,cout,leaky", [(162, 16, True), (2, 2, False), (5, 9, True)])
+def test_packed_head_weight_f32_deconv_matches_plain_and_jax(rng, cin, cout, leaky):
+    """pack_head_weight_f32's deconv layout (four phases of four taps per
+    input channel), as im2col matmuls, is the k4/s2 deconv: against
+    head_deconv2d_plain and the JAX s2d deconv through matmul_conv_pallas
+    (interpret mode), float32, 1e-5."""
+    x = rng.standard_normal((2, 9, 13, cin)).astype(np.float32)
+    w = (rng.standard_normal((4, 4, cout, cin)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((cout,)).astype(np.float32)
+    weight = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
+    got = _packed_deconv_f32(nchw(x), weight, torch.from_numpy(b), leaky=leaky)
+    plain = head_deconv2d_plain(nchw(x), weight, torch.from_numpy(b), leaky=leaky)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=F32_ATOL, atol=F32_ATOL)
+    with mock.patch.object(jax_s2d_conv.pl, "pallas_call", _interpret):
+        ref = jax_s2d._deconv2d_s2d_routed(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ref = np.asarray(jax_s2d.depth_to_space(ref))
+    np.testing.assert_allclose(nhwc(got), np.asarray(jax_leaky_relu(ref)) if leaky else ref, rtol=F32_ATOL,
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("w_shape,deconv,packed_shape", [
+    ((2, 3, 7, 7), False, (3, 49, 4)), ((16, 16, 3, 3), False, (16, 9, 16)), ((40, 82, 3, 3), False, (82, 9, 64)),
+    ((162, 9, 4, 4), True, (162, 16, 16)), ((2, 2, 4, 4), True, (2, 16, 4)),
+])
+def test_packed_head_weight_f32_shape_and_padding(w_shape, deconv, packed_shape):
+    """(cin, taps, cout_pad): Cout to the float32 kernel's channel blocks 4,
+    16 or 64, zero in the padding, every weight kept once, the dtype kept,
+    and one channel's weights a whole number of 16-byte units."""
+    weight = torch.randn(w_shape, generator=torch.Generator().manual_seed(0))
+    cout = w_shape[1] if deconv else w_shape[0]
+    packed = pack_head_weight_f32(weight, deconv=deconv)
+    assert packed.shape == packed_shape and packed.dtype == torch.float32 and packed.is_contiguous()
+    assert not packed[..., cout:].any() and packed[0].numel() % 4 == 0
+    kept = packed[..., :cout].flatten().sort().values
+    assert torch.equal(kept, weight.flatten().sort().values)
 
 
 def test_head_cuda_wrappers_refuse_cpu_tensors():

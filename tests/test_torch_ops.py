@@ -215,6 +215,20 @@ def test_correlation_backward_matches_jax_vjp(rng, kw):
         np.testing.assert_allclose(nhwc(got), ref, rtol=1e-5, atol=tol)
 
 
+def test_correlation_plain_matches_jax_at_sintel_like_geometry(rng):
+    """correlation_plain against correlation_auto at a feature map shaped
+    like Sintel's (wider than tall, W/H about 2.3: 1x32x14x32), FlowNetC's md
+    20 / stride2 2, where most displacements leave the map: atol 1e-5 of
+    max|ref|."""
+    kw = CORR_CASES["flownetc"]
+    f1 = rng.standard_normal((1, 14, 32, 32)).astype(np.float32)
+    f2 = rng.standard_normal((1, 14, 32, 32)).astype(np.float32)
+    got = nhwc(correlation_plain(nchw(f1), nchw(f2), **kw))
+    ref = np.asarray(correlation_auto(jnp.asarray(f1), jnp.asarray(f2), **kw))
+    assert got.shape == ref.shape == (1, 14, 32, 441)
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
 def test_correlation_flownetc_channels_and_dtype(rng):
     f = torch.from_numpy(rng.standard_normal((1, 8, 6, 7)).astype(np.float32)).bfloat16()
     out = correlation_plain(f, f, **CORR_CASES["flownetc"])
