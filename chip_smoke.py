@@ -4,9 +4,10 @@
 Builds the hand-written CUDA kernels from ``flownet2_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card at the shapes FlowNet2
 gives it (warp and correlation, forward and backward, at 448x320 batch 8,
-and the correlation forward also at Sintel b4's features; the head convs,
-K3, and the fused fusion-net decoder head, K4, at Sintel size 1024x448
-batch 4), then drives the port's paths with seeded random weights:
+and the correlation forward and backward also at Sintel b4's features;
+the head convs, K3, and the fused fusion-net decoder head, K4, at Sintel
+size 1024x448 batch 4), then drives the port's paths with seeded random
+weights:
 
 - inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
   bfloat16) and the ``run_flownet`` CLI, checked against the same port on
@@ -161,13 +162,18 @@ def abs_err_and_scale(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, floa
     return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
 
 
-def corr_bound(shape, size: int = 4) -> dict:
-    """The correlation forward's bound at features ``shape`` (N, C, H, W):
-    f1 and f2 read, 441 channels written, one multiply-add per channel and
-    displacement (the float32 CUDA cores, both dtypes: the kernel sums in
-    float32). No library call computes a cost volume."""
+def corr_bound(shape, dtype: torch.dtype = torch.float32, peak: float | None = None) -> dict:
+    """The correlation forward's bound at features ``shape`` (N, C, H, W) in
+    ``dtype``: f1 and f2 read, 441 channels written, one multiply-add per
+    channel and displacement, at the type's peak (bfloat16 products are
+    exact in float32 and the tensor cores sum in float32, so the function
+    can run at the bfloat16 rate). ``peak=PEAK_F32_FLOPS`` gives the
+    CUDA-core bound: the kernel sums on the float32 CUDA cores in both
+    dtypes. No library call computes a cost volume."""
     n_, c_, h_, w_ = shape
-    return bound(size * (2 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 2 * n_ * 441 * h_ * w_ * c_)
+    size, type_peak = DTYPE_PEAKS[dtype]
+    return bound(size * (2 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 2 * n_ * 441 * h_ * w_ * c_,
+                 peak or type_peak)
 
 
 def phase_kernels(dev: torch.device, card: str) -> dict:
@@ -243,10 +249,11 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         err, top = abs_err_and_scale(got, correlation_plain(a, b_, **CORR))
         check(err <= rel * top, f"correlation Sintel {dtype}: max abs err {err} > {rel * top}")
         ms = cuda_ms(lambda: correlation_cuda(a_nhwc, b_nhwc, max_displacement=20, stride2=2))
-        b = corr_bound(CORR_SINTEL_SHAPE, DTYPE_PEAKS[dtype][0])
+        b = corr_bound(CORR_SINTEL_SHAPE, dtype)
+        cc = corr_bound(CORR_SINTEL_SHAPE, dtype, PEAK_F32_FLOPS)
         print(f"[kernels] correlation {str(dtype)[6:]} {CORR_SINTEL_SHAPE} (Sintel b4) -> 441 channels: max abs err "
-              f"{err:.3g} (tol {rel * top:.3g}); kernel {ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
-              f"({card})")
+              f"{err:.3g} (tol {rel * top:.3g}); kernel {ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"CUDA-core bound {cc['bound_ms']:.4f} ms ({cc['bound_by']}) ({card})")
         del a, b_, a_nhwc, b_nhwc, got
     results.update(phase_backward_kernels(dev, card, img32, flow32, f1, f2))
     return results
@@ -255,7 +262,10 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
 def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
     """K2 and the correlation's backward: through the autograd Functions
     (fill 0 and NaN for the warp) against autograd through the plain
-    versions on the card; limits 1e-5 (f32) and 2e-2 (bf16) x max|ref|."""
+    versions on the card at 448x320 b8, and the correlation backward's
+    wrapper at Sintel b4's features; limits 1e-5 (f32) and 2e-2 (bf16) x
+    max|ref|. Each timed beside its bound in both dtypes, K2 also as the
+    path calls it (d_flow only)."""
     from flownet2_tpu_torch.ops.correlation import (
         correlation, correlation_backward_cuda, correlation_backward_plain,
     )
@@ -286,20 +296,25 @@ def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
     ms = cuda_ms(lambda: flow_warp_backward_cuda(img32, flow32, g32))
     flow_ms = cuda_ms(lambda: flow_warp_backward_cuda(img32, flow32, g32, need_image=False))
     plain_ms = cuda_ms(lambda: flow_warp_backward_plain(img32, flow32, g32))
-    print(f"[kernels] flow_warp_backward f32 {N}x3x{H}x{W}: kernel {ms:.4f} ms (d_flow only {flow_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms ({card})")
     # image, flow and g read, d_image and d_flow written; about 20 operations
-    # per channel (4 weighted scatters, the two spatial differences)
+    # per channel (4 weighted scatters, the two spatial differences). The
+    # path asks for d_flow only: d_image is neither written nor summed, about
+    # 10 operations per channel.
     px = N * H * W
+    both, flow_only = bound(4 * px * (3 + 2 + 3 + 3 + 2), 20 * 3 * px), bound(4 * px * (3 + 2 + 3 + 2), 10 * 3 * px)
+    print(f"[kernels] flow_warp_backward f32 {N}x3x{H}x{W}: kernel {ms:.4f} ms, bound {both['bound_ms']:.4f} ms "
+          f"({both['bound_by']}); d_flow only (as the path calls it) {flow_ms:.4f} ms, bound "
+          f"{flow_only['bound_ms']:.4f} ms ({flow_only['bound_by']}); plain {plain_ms:.4f} ms ({card})")
     results["flow_warp_backward"] = dict(
         name="flow_warp_backward", route="cuda", source="flownet2_tpu_torch/csrc/warp_bwd.cu",
         replaces="flownet2_tpu/ops/pallas/warp.py:374", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        **bound(4 * px * (3 + 2 + 3 + 3 + 2), 20 * 3 * px), library_ms=None,
+        **both, library_ms=None, d_flow_only_ms=flow_ms, d_flow_only_bound_ms=flow_only["bound_ms"],
+        d_flow_only_bound_by=flow_only["bound_by"],
     )
 
     g_corr = torch.randn((N, 441, H // 8, W // 8), generator=torch.Generator().manual_seed(SEED + 3)).to(dev)
     worst = 0.0
-    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+    for dtype, rel in REL_TOL.items():
         a, b, g = f1.to(dtype).requires_grad_(True), f2.to(dtype).requires_grad_(True), g_corr.to(dtype)
         got = torch.autograd.grad(correlation(a, b, **CORR), (a, b), g)
         torch.cuda.synchronize()
@@ -312,19 +327,64 @@ def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
             check(err <= rel * top, f"correlation bwd {dtype} {what}: max abs err {err} > {rel * top}")
             if dtype == torch.float32:
                 worst = max(worst, err)
-    a_nhwc, b_nhwc = f1.permute(0, 2, 3, 1).contiguous(), f2.permute(0, 2, 3, 1).contiguous()
-    ms = cuda_ms(lambda: correlation_backward_cuda(a_nhwc, b_nhwc, g_corr, max_displacement=20, stride2=2))
     plain_ms = cuda_ms(lambda: correlation_backward_plain(f1, f2, g_corr, **CORR), warmup=1, runs=3)
-    print(f"[kernels] correlation_backward f32 {CORR_SHAPE} NCHW, 441 channels: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms ({card})")
-    # f1, f2 and g read, df1 and df2 written; two passes of the forward's work
-    n_, c_, h_, w_ = CORR_SHAPE
+    times = {}
+    for dtype in DTYPE_PEAKS:
+        a_nhwc, b_nhwc = (t.to(dtype).permute(0, 2, 3, 1).contiguous() for t in (f1, f2))
+        g = g_corr.to(dtype)
+        times[dtype] = cuda_ms(lambda: correlation_backward_cuda(a_nhwc, b_nhwc, g, max_displacement=20, stride2=2))
+        b_, cc = corr_bwd_bound(CORR_SHAPE, dtype), corr_bwd_bound(CORR_SHAPE, dtype, PEAK_F32_FLOPS)
+        print(f"[kernels] correlation_backward {str(dtype)[6:]} {CORR_SHAPE} NCHW, 441 channels, df1 and df2: "
+              f"kernel {times[dtype]:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}), CUDA-core bound "
+              f"{cc['bound_ms']:.4f} ms ({cc['bound_by']})"
+              f"{f', plain {plain_ms:.4f} ms' if dtype == torch.float32 else ''} ({card})")
+        del a_nhwc, b_nhwc, g
+    b16, cc16 = corr_bwd_bound(CORR_SHAPE, torch.bfloat16), corr_bwd_bound(CORR_SHAPE, torch.bfloat16, PEAK_F32_FLOPS)
     results["correlation_backward"] = dict(
         name="correlation_backward", route="cuda", source="flownet2_tpu_torch/csrc/correlation_bwd.cu",
-        replaces="flownet2_tpu/ops/correlation.py:252", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        **bound(4 * (4 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 4 * n_ * 441 * h_ * w_ * c_), library_ms=None,
+        replaces="flownet2_tpu/ops/correlation.py:252", max_abs_err=worst, ms=times[torch.float32],
+        plain_ms=plain_ms, **corr_bwd_bound(CORR_SHAPE), library_ms=None, bf16_ms=times[torch.bfloat16],
+        bf16_bound_ms=b16["bound_ms"], bf16_bound_by=b16["bound_by"], bf16_cuda_core_bound_ms=cc16["bound_ms"],
     )
+    # the Sintel b4 feature shape: checked in both dtypes and timed beside its bound
+    gen = torch.Generator().manual_seed(SEED + 8)
+    s1, s2 = (torch.randn(CORR_SINTEL_SHAPE, generator=gen).to(dev) for _ in range(2))
+    n_, _, h_, w_ = CORR_SINTEL_SHAPE
+    gs = torch.randn((n_, 441, h_, w_), generator=gen).to(dev)
+    for dtype, rel in REL_TOL.items():
+        a, b, g = s1.to(dtype), s2.to(dtype), gs.to(dtype)
+        a_nhwc, b_nhwc = a.permute(0, 2, 3, 1).contiguous(), b.permute(0, 2, 3, 1).contiguous()
+        got = correlation_backward_cuda(a_nhwc, b_nhwc, g, max_displacement=20, stride2=2)
+        torch.cuda.synchronize()
+        ref = correlation_backward_plain(a, b, g, **CORR)
+        errs = []
+        for what, x, y in zip(("df1", "df2"), got, ref):
+            err, top = abs_err_and_scale(x, y.permute(0, 2, 3, 1))
+            check(err <= rel * top, f"correlation bwd Sintel {dtype} {what}: max abs err {err} > {rel * top}")
+            errs.append(f"{what} {err:.3g} (tol {rel * top:.3g})")
+        del got, ref
+        ms = cuda_ms(lambda: correlation_backward_cuda(a_nhwc, b_nhwc, g, max_displacement=20, stride2=2))
+        b_, cc = corr_bwd_bound(CORR_SINTEL_SHAPE, dtype), corr_bwd_bound(CORR_SINTEL_SHAPE, dtype, PEAK_F32_FLOPS)
+        print(f"[kernels] correlation_backward {str(dtype)[6:]} {CORR_SINTEL_SHAPE} (Sintel b4), df1 and df2: "
+              f"max abs err {'; '.join(errs)}; kernel {ms:.4f} ms, bound {b_['bound_ms']:.4f} ms "
+              f"({b_['bound_by']}), CUDA-core bound {cc['bound_ms']:.4f} ms ({cc['bound_by']}) ({card})")
+        name = f"sintel_{str(dtype)[6:]}"
+        results["correlation_backward"].update(
+            {f"{name}_ms": ms, f"{name}_bound_ms": b_["bound_ms"], f"{name}_cuda_core_bound_ms": cc["bound_ms"]})
+        del a, b, g, a_nhwc, b_nhwc
+    torch.cuda.empty_cache()
     return results
+
+
+def corr_bwd_bound(shape, dtype: torch.dtype = torch.float32, peak: float | None = None) -> dict:
+    """The correlation backward's bound at features ``shape`` (N, C, H, W) in
+    ``dtype``: f1, f2 and the 441-channel g read, df1 and df2 written, two
+    multiply-adds per channel and displacement, at the type's peak;
+    ``peak=PEAK_F32_FLOPS`` gives the CUDA-core bound (as :func:`corr_bound`)."""
+    n_, c_, h_, w_ = shape
+    size, type_peak = DTYPE_PEAKS[dtype]
+    return bound(size * (4 * n_ * c_ * h_ * w_ + n_ * 441 * h_ * w_), 4 * n_ * 441 * h_ * w_ * c_,
+                 peak or type_peak)
 
 
 # K3's geometries at Sintel b4, one per distinct layer shape of a FlowNet2

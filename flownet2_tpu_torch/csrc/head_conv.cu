@@ -65,27 +65,6 @@ constexpr int kTX = 32;  // output columns of a warp
 constexpr int kStages = 2;
 constexpr int kStageBytes = 48 * 1024;  // largest stage, so two blocks fit an SM
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4-byte copy; zero-filled (nothing read) where !valid
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <int CO>
 __device__ __forceinline__ void load_weights(float (&wv)[CO], const float* p) {
 #pragma unroll
@@ -140,7 +119,7 @@ __device__ __forceinline__ void stage_chunk(float* st, const float* __restrict__
                                             int c0, int nc, int iy0, int ix0, int h, int w, long long hw) {
   const int tid = threadIdx.x;
   const float* wsrc = wp + static_cast<long long>(c0) * Geo::W_CH;
-  for (int i = tid; i < nc * Geo::W_CH / 4; i += kThreads) cp_async16(st + 4 * i, wsrc + 4 * i);
+  for (int i = tid; i < nc * Geo::W_CH / 4; i += kThreads) cp_async<16>(st + 4 * i, wsrc + 4 * i, true);
   float* xs = st + Geo::W_FLOATS;
   constexpr int PATCH = Geo::IR * Geo::IC;
   for (int i = tid; i < nc * PATCH; i += kThreads) {
@@ -152,7 +131,7 @@ __device__ __forceinline__ void stage_chunk(float* st, const float* __restrict__
     const bool valid = gy >= 0 && gy < h && gx >= 0 && gx < w;
     const float* src = valid ? xb + (c0 + ci) * hw + static_cast<long long>(gy) * w + gx : xb;
     const int col = Geo::STRIDE == 2 ? (c & 1) * Geo::ICP + (c >> 1) : c;
-    cp_async4(xs + ci * Geo::X_CH + r * Geo::ROW + col, src, valid);
+    cp_async<4>(xs + ci * Geo::X_CH + r * Geo::ROW + col, src, valid);
   }
 }
 

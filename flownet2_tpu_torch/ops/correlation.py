@@ -17,7 +17,8 @@ Layout: f1, f2 (N, C, H, W) -> (N, gw**2, out_h, out_w). A CUDA tensor goes
 to an autograd Function over the hand-written kernels (forward
 csrc/correlation.cu, backward csrc/correlation_bwd.cu), which cover the
 FlowNet configuration (multiply, k=1, stride1=1, pad == max_displacement)
-and raise NotImplementedError otherwise; a CPU tensor goes to
+and raise NotImplementedError otherwise (and ValueError where a kernel's
+wrapper refuses a shape); a CPU tensor goes to
 :func:`correlation_plain`, which covers every configuration and which
 autograd differentiates.
 """
@@ -192,13 +193,16 @@ def correlation_backward_cuda(
     f1: torch.Tensor, f2: torch.Tensor, grad: torch.Tensor, *, max_displacement: int, stride2: int,
     need_f1: bool = True, need_f2: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """Launch the backward kernels (csrc/correlation_bwd.cu) on the current stream.
+    """Launch the backward kernel (csrc/correlation_bwd.cu) on the current stream.
 
     FlowNet configuration only. Takes f1, f2 (N, H, W, C) channels-last and
-    grad (N, gw**2, H, W), contiguous, all float32 or all bfloat16, on one
-    CUDA device; returns (df1, df2) (N, H, W, C) in their dtype, None for a
-    gradient not asked for. Raises on anything else, and on more than 12288
-    displacements (a column's g values must fit shared memory).
+    grad (N, gw**2, H, W), contiguous, all float32 or all bfloat16 (then
+    with C even: the kernel copies 4 bytes at a time), on one CUDA device;
+    returns (df1, df2) (N, H, W, C) in their dtype, None for a gradient not
+    asked for. Both gradients are one launch. Raises on anything else, on
+    gw * H * W >= 2**31 for gw = 2 * (max_displacement // stride2) + 1
+    (32-bit offsets into a g plane), and where the f rows of one 4-column
+    run do not fit shared memory (gw above about 400 at stride2 1).
     """
     if f1.device.type != "cuda" or f2.device != f1.device or grad.device != f1.device:
         raise ValueError(f"correlation_backward_cuda needs CUDA tensors on one device, got "
@@ -218,6 +222,10 @@ def correlation_backward_cuda(
     gw = 2 * (max_displacement // stride2) + 1
     if tuple(grad.shape) != (n, gw * gw, h, w):
         raise ValueError(f"grad shape {tuple(grad.shape)}, expected {(n, gw * gw, h, w)}")
+    if gw * h * w >= 2**31:
+        raise ValueError(f"correlation_backward_cuda takes gw*H*W < 2**31; got gw={gw}, H={h}, W={w}")
+    if f1.dtype == torch.bfloat16 and c % 2:
+        raise ValueError(f"correlation_backward_cuda: bfloat16 needs an even channel count, got C={c}")
     df1 = torch.empty_like(f1) if need_f1 else None
     df2 = torch.empty_like(f2) if need_f2 else None
     if not (need_f1 or need_f2) or f1.numel() == 0:

@@ -5,8 +5,8 @@ goes on one CUDA card.
 Runs the port's ``FlowRunner.run`` on card tensors (seeded random weights,
 seeded uniform images) under ``torch.profiler`` for a few forwards after a
 warm-up, per dtype; with ``--train``, ``Solver.step`` (Adam) of the
-FlowNetC-stage loss and of the joint FlowNet2 loss, float32, instead. It
-prints:
+FlowNetC-stage loss (per dtype) and of the joint FlowNet2 loss (float32)
+instead. It prints:
 
 - wall time per batch (CUDA events around the profiled forwards, so it
   includes the profiler's own host cost), device busy time per batch (the
@@ -23,16 +23,17 @@ prints:
     python3 scripts/profile_slice.py --height 448 --width 1024 --batch 4 --fusion-head
     python3 scripts/profile_slice.py --train              # train steps, 448x320 b8
     python3 scripts/profile_slice.py --head-layers        # K3 per layer at Sintel b4
-    python3 scripts/profile_slice.py --corr               # correlation forward, 448x320 b8 and Sintel b4
+    python3 scripts/profile_slice.py --corr               # correlation fwd/bwd, K1, K2: device time
 
 With ``--head-layers`` it runs K3's wrappers on each of its Sintel b4 layer
 shapes (``chip_smoke.HEAD_GEOMETRIES``) and prints, per call, the device
 time of the head kernel, of everything else the wrapper launches (the
 bfloat16 route's weight packing) and of cuDNN's call on the same tensors.
-With ``--corr`` it runs the correlation forward's wrapper
-(``correlation_cuda``, FlowNetC's md 20 / stride2 2 on channels-last
-features) at the 448x320 b8 and Sintel b4 feature shapes and prints its
-device time per call.
+With ``--corr`` it runs the correlation's wrappers (``correlation_cuda``
+and ``correlation_backward_cuda`` for both gradients, FlowNetC's md 20 /
+stride2 2 on channels-last features) at the 448x320 b8 and Sintel b4
+feature shapes, and K1's and K2's (d_flow only, as the joint step calls
+it) at the 448x320 b8 images, and prints each kernel's device time per call.
 
 TF32 is off, as in chip_smoke.py. Imports neither jax nor the JAX package.
 """
@@ -155,14 +156,17 @@ def profile_dtype(args, dtype: str, dev: torch.device) -> str:
     return profile_run(args, label, lambda: runner.run(i0, i1))
 
 
-def profile_train(args, objective: str, dev: torch.device) -> str:
-    """Adam ``Solver.step``, float32: FlowNetC's loss or the joint FlowNet2 loss."""
+def profile_train(args, objective: str, dtype: str, dev: torch.device) -> str:
+    """Adam ``Solver.step`` of FlowNetC's loss or the joint FlowNet2 loss,
+    computed in ``dtype`` over float32 master weights."""
     from flownet2_tpu_torch.checkpoint import init_params, load_into
     from flownet2_tpu_torch.models import NETS
     from flownet2_tpu_torch.train import Solver, SolverConfig
-    from flownet2_tpu_torch.train.objectives import flownet2_loss, flownet_c_loss
+    from flownet2_tpu_torch.train.objectives import flownet2_loss, flownet_c_loss, with_compute_dtype
 
     model, loss_fn = {"flownetc": ("flownetc", flownet_c_loss), "joint": ("flownet2", flownet2_loss)}[objective]
+    if dtype != "float32":
+        loss_fn = with_compute_dtype(loss_fn, getattr(torch, dtype))
     with torch.device("meta"):
         net = NETS[model]()
     solver = Solver(SolverConfig(solver_type="adam"), loss_fn, load_into(net, init_params(model, seed=SEED)),
@@ -170,26 +174,31 @@ def profile_train(args, objective: str, dev: torch.device) -> str:
     i0, i1 = _images(args, dev)
     flow = torch.randn(args.batch, args.height, args.width, 2, generator=torch.Generator().manual_seed(SEED))
     batch = {"img0": i0, "img1": i1, "flow": (4 * flow).to(dev)}
-    return profile_run(args, f"train {objective} f32", lambda: solver.step(batch))
+    return profile_run(args, f"train {objective} {dtype}", lambda: solver.step(batch))
 
 
-def _device_us(run, patterns) -> dict[str, float]:
+def _device_us(run, patterns, require: bool = True) -> dict[str, float]:
     """Device time per call of ``run`` in us, split into the kernels whose
     names contain one of ``patterns`` and the rest, over ``STEPS`` calls
-    after ``WARMUP``."""
+    after ``WARMUP``. Where ``require``, a trace in which no such kernel
+    shows (the profiler has returned one without device events) is taken
+    again, and after three such traces it raises."""
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(STEPS):
-            run()
-        torch.cuda.synchronize()
-    out = {"kernel": 0.0, "other": 0.0}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            mine = any(p in e.name for p in patterns)
-            out["kernel" if mine else "other"] += e.time_range.elapsed_us() / STEPS
-    return out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEPS):
+                run()
+            torch.cuda.synchronize()
+        out = {"kernel": 0.0, "other": 0.0}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                mine = any(p in e.name for p in patterns)
+                out["kernel" if mine else "other"] += e.time_range.elapsed_us() / STEPS
+        if out["kernel"] > 0 or not require:
+            return out
+    raise RuntimeError(f"profile_slice: no device event of a kernel named {patterns} in three traces")
 
 
 def profile_head_layers(args, dev: torch.device) -> str:
@@ -210,10 +219,11 @@ def profile_head_layers(args, dev: torch.device) -> str:
             head = KERNEL_PARTS[HEAD_PART]
             if stride == 0:
                 ours = _device_us(lambda: head_deconv2d_cuda(x, w, b, leaky=leaky), head)
-                lib = _device_us(lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1), head)
+                lib = _device_us(lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1), head, require=False)
             else:
                 ours = _device_us(lambda: head_conv2d_cuda(x, w, b, stride=stride, leaky=leaky), head)
-                lib = _device_us(lambda: F.conv2d(x, w, b, stride=stride, padding=w_shape[-1] // 2), head)
+                lib = _device_us(lambda: F.conv2d(x, w, b, stride=stride, padding=w_shape[-1] // 2), head,
+                                require=False)
             lines.append(f"{label} {dtype}: head kernel {ours['kernel'] / 1e3:.4f} ms, other "
                          f"{ours['other'] / 1e3:.4f} ms, cuDNN call {(lib['kernel'] + lib['other']) / 1e3:.4f} "
                          f"ms per call; {count} per forward")
@@ -223,19 +233,34 @@ def profile_head_layers(args, dev: torch.device) -> str:
 
 
 def profile_corr(args, dev: torch.device) -> str:
-    """The correlation forward's kernel at FlowNetC's two feature shapes."""
-    from chip_smoke import CORR_SHAPE, CORR_SINTEL_SHAPE
-    from flownet2_tpu_torch.ops.correlation import correlation_cuda
+    """The correlation forward's and backward's kernels at FlowNetC's two
+    feature shapes, then K1 and K2 (d_flow only, as the joint step asks)
+    at the 448x320 b8 images."""
+    from chip_smoke import CORR_SHAPE, CORR_SINTEL_SHAPE, H, N, W, _warp_inputs
+    from flownet2_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
 
     g = torch.Generator().manual_seed(SEED)
     lines = []
     for n, c, h, w in (CORR_SHAPE, CORR_SINTEL_SHAPE):
         f1, f2 = (torch.randn(n, h, w, c, generator=g) for _ in range(2))
+        grad = torch.randn(n, 441, h, w, generator=g)
         for dtype in args.dtypes:
-            a, b = (t.to(dev, getattr(torch, dtype)) for t in (f1, f2))
-            us = _device_us(lambda: correlation_cuda(a, b, max_displacement=20, stride2=2),
-                            KERNEL_PARTS["correlation kernel"])
-            lines.append(f"correlation {n}x{c}x{h}x{w} -> 441 {dtype}: kernel {us['kernel'] / 1e3:.4f} ms per call")
+            a, b, gr = (t.to(dev, getattr(torch, dtype)) for t in (f1, f2, grad))
+            fwd = _device_us(lambda: correlation_cuda(a, b, max_displacement=20, stride2=2),
+                             KERNEL_PARTS["correlation kernel"])
+            bwd = _device_us(lambda: correlation_backward_cuda(a, b, gr, max_displacement=20, stride2=2),
+                             KERNEL_PARTS["correlation backward kernel"])
+            lines.append(f"correlation {n}x{c}x{h}x{w} -> 441 {dtype}: kernel {fwd['kernel'] / 1e3:.4f} ms per "
+                         f"call; backward (df1 and df2) kernel {bwd['kernel'] / 1e3:.4f} ms per call")
+            del a, b, gr
+    img, flow = _warp_inputs(dev)
+    grad = torch.randn(img.shape, generator=g).to(dev)
+    k1 = _device_us(lambda: flow_warp_cuda(img, flow), KERNEL_PARTS["flow_warp kernel"])
+    k2 = _device_us(lambda: flow_warp_backward_cuda(img, flow, grad, need_image=False),
+                    KERNEL_PARTS["flow_warp backward kernel"])
+    lines.append(f"flow_warp {N}x3x{H}x{W} float32: kernel {k1['kernel'] / 1e3:.4f} ms per call; backward, "
+                 f"d_flow only: kernel {k2['kernel'] / 1e3:.4f} ms per call")
     return "\n".join(lines)
 
 
@@ -249,7 +274,8 @@ def main(argv=None) -> int:
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     p.add_argument("--fusion-head", action="store_true", help="FlowNet2 with the fused fusion-net decoder head")
     p.add_argument("--head-layers", action="store_true", help="K3 and cuDNN per head layer at Sintel b4")
-    p.add_argument("--corr", action="store_true", help="the correlation forward at 448x320 b8 and Sintel b4")
+    p.add_argument("--corr", action="store_true",
+                   help="the correlation forward and backward at 448x320 b8 and Sintel b4, K1 and K2")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -267,8 +293,9 @@ def main(argv=None) -> int:
     elif args.corr:
         print(profile_corr(args, dev))
     elif args.train:
-        for objective in ("flownetc", "joint"):
-            print(profile_train(args, objective, dev))
+        for dtype in args.dtypes:
+            print(profile_train(args, "flownetc", dtype, dev))
+        print(profile_train(args, "joint", "float32", dev))
     else:
         for dtype in args.dtypes:
             print(profile_dtype(args, dtype, dev))

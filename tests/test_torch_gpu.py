@@ -122,23 +122,6 @@ def test_correlation_kernel_edges_match_plain(cuda, c, h, w, md, s2, dtype, rel_
     _rel_close(got, ref, rel_tol)
 
 
-@pytest.mark.parametrize("c,h,w,md,s2", [(99, 9, 57, 4, 1), (64, 7, 33, 20, 2)])
-def test_correlation_autograd_matches_backward_plain(cuda, c, h, w, md, s2):
-    """Gradients through correlation on the card (forward kernel, backward
-    kernels) against correlation_backward_plain, float32, 1e-5 * max|ref|."""
-    g0 = torch.Generator().manual_seed(w)
-    f1, f2 = (torch.randn(2, c, h, w, generator=g0).to(cuda) for _ in range(2))
-    kw = dict(max_displacement=md, kernel_size=1, stride1=1, stride2=s2, pad=md)
-    gw = 2 * (md // s2) + 1
-    grad = torch.randn(2, gw * gw, h, w, generator=g0).to(cuda)
-    a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
-    got = torch.autograd.grad(correlation(a, b, **kw), (a, b), grad)
-    ref = correlation_backward_plain(f1, f2, grad, **kw)
-    for x, y in zip(got, ref):
-        assert x.shape == y.shape == (2, c, h, w)
-        _rel_close(x, y, 1e-5)
-
-
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     img, flow = _warp_inputs(cuda)
     with pytest.raises(TypeError):
@@ -157,6 +140,9 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     odd = torch.zeros(1, 6, 6, 9, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="even"):
         correlation_cuda(odd, odd, max_displacement=2, stride2=1)
+    with pytest.raises(ValueError, match="even"):
+        correlation_backward_cuda(odd, odd, torch.zeros(1, 25, 6, 6, device=cuda, dtype=torch.bfloat16),
+                                  max_displacement=2, stride2=1)
 
 
 def test_flownet2_on_card_uses_kernels_and_matches_cpu(cuda):
@@ -208,21 +194,81 @@ def test_warp_backward_kernel_matches_plain(cuda, dtype, rel):
     assert only_flow[0] is None and torch.equal(only_flow[1], d_flow)
 
 
-@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_correlation_backward_kernel_matches_plain(cuda, dtype, rel):
-    g0 = torch.Generator().manual_seed(4)
-    f1 = torch.randn(2, 256, 12, 14, generator=g0).to(cuda, dtype)
-    f2 = torch.randn(2, 256, 12, 14, generator=g0).to(cuda, dtype)
-    g = torch.randn(2, 441, 12, 14, generator=g0).to(cuda, dtype)
-    nhwc = (lambda t: t.permute(0, 2, 3, 1).contiguous())
+# the backward's cases: the forward's edges, FlowNetC's md 20 / stride2 2
+# at 256 channels, C 99 (float32 only: bfloat16 needs an even C), md 24 at
+# stride2 1 (gw 49: g straight to shared memory) and stride2 20 (two plane groups)
+CORR_BWD_CASES = [
+    (*case, dtype, rel)
+    for case in CORR_EDGE_CASES + [(256, 12, 14, 20, 2), (99, 9, 57, 4, 1), (64, 7, 33, 20, 2),
+                                   (20, 6, 33, 24, 1), (8, 6, 40, 40, 20)]
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2))
+    if case[0] % 2 == 0 or dtype == torch.float32
+]
+
+
+def _corr_bwd_inputs(device, dtype, n, c, h, w, md, s2, seed):
+    """f1, f2 (N, C, H, W) and a cotangent (N, gw**2, H, W), seeded."""
+    g0 = torch.Generator().manual_seed(seed)
+    gw = 2 * (md // s2) + 1
+    f1, f2 = (torch.randn(n, c, h, w, generator=g0).to(device, dtype) for _ in range(2))
+    return f1, f2, torch.randn(n, gw * gw, h, w, generator=g0).to(device, dtype)
+
+
+@pytest.mark.parametrize("c,h,w,md,s2,dtype,rel", CORR_BWD_CASES)
+def test_correlation_backward_kernel_matches_plain(cuda, c, h, w, md, s2, dtype, rel):
+    """Gradients through correlation on the card (forward kernel, then one
+    launch of the backward kernel for both df1 and df2) against
+    correlation_backward_plain: f32 within 1e-5 * max|ref| (sums in another
+    order), bf16 within 2e-2 * max|ref| (one bf16 rounding of the output).
+    Strides 1, 2 and 20 (planes in two groups), md 4, 20 and 24 (1681 and
+    2401 displacements at stride2 1: the second too many g values a row
+    for registers), widths that cut the 4-column runs of either plane (57,
+    33, 130, 14), channel counts that are not a multiple of the 64-channel
+    runs (100, 99, 8, 20), and the 4-byte copies (C 99 in float32, C 100
+    and 20 in bfloat16)."""
+    f1, f2, grad = _corr_bwd_inputs(cuda, dtype, 2, c, h, w, md, s2, seed=c + w + md)
+    kw = dict(max_displacement=md, kernel_size=1, stride1=1, stride2=s2, pad=md)
+    a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
     before = correlation_backward_cuda.launches
-    df1, df2 = correlation_backward_cuda(nhwc(f1), nhwc(f2), g, max_displacement=20, stride2=2)
+    got = torch.autograd.grad(correlation(a, b, **kw), (a, b), grad)
     torch.cuda.synchronize()
     assert correlation_backward_cuda.launches == before + 1
-    ref1, ref2 = correlation_backward_plain(f1, f2, g, **FLOWNETC_CORR)
-    assert df1.dtype == df2.dtype == dtype
-    _rel_close(df1, nhwc(ref1), rel)
-    _rel_close(df2, nhwc(ref2), rel)
+    ref = correlation_backward_plain(f1, f2, grad, **kw)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape == (2, c, h, w) and x.dtype == dtype
+        _rel_close(x, y, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("need", ["f1", "f2"])
+def test_correlation_backward_kernel_one_sided(cuda, need, dtype):
+    """need_f1 only or need_f2 only: one launch, the other gradient None, and
+    the one asked for equal to the same gradient of the two-sided call."""
+    f1, f2, grad = _corr_bwd_inputs(cuda, dtype, 2, 64, 9, 30, 20, 2, seed=7)
+    nhwc = (lambda t: t.permute(0, 2, 3, 1).contiguous())
+    both = correlation_backward_cuda(nhwc(f1), nhwc(f2), grad, max_displacement=20, stride2=2)
+    before = correlation_backward_cuda.launches
+    got = correlation_backward_cuda(nhwc(f1), nhwc(f2), grad, max_displacement=20, stride2=2,
+                                    need_f1=need == "f1", need_f2=need == "f2")
+    torch.cuda.synchronize()
+    assert correlation_backward_cuda.launches == before + 1
+    k = 0 if need == "f1" else 1
+    assert got[1 - k] is None
+    assert torch.equal(got[k], both[k])
+    _rel_close(got[k], nhwc(correlation_backward_plain(f1, f2, grad, **FLOWNETC_CORR)[k]),
+               1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_correlation_backward_kernel_at_sintel_features(cuda):
+    """FlowNetC's backward at Sintel b4's conv3 features, 4x256x56x128
+    (two column tiles of each plane), float32: within 1e-5 * max|ref|."""
+    f1, f2, grad = _corr_bwd_inputs(cuda, torch.float32, 4, 256, 56, 128, 20, 2, seed=8)
+    nhwc = (lambda t: t.permute(0, 2, 3, 1).contiguous())
+    df1, df2 = correlation_backward_cuda(nhwc(f1), nhwc(f2), grad, max_displacement=20, stride2=2)
+    torch.cuda.synchronize()
+    ref1, ref2 = correlation_backward_plain(f1, f2, grad, **FLOWNETC_CORR)
+    _rel_close(df1, nhwc(ref1), 1e-5)
+    _rel_close(df2, nhwc(ref2), 1e-5)
 
 
 @pytest.mark.parametrize("fill", [0.0, float("nan")])

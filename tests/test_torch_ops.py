@@ -196,14 +196,19 @@ def test_correlation_matches_jax_and_oracle(rng, case):
     np.testing.assert_allclose(got, oracle, atol=tol)
 
 
-@pytest.mark.parametrize("kw", [dict(max_displacement=4, stride2=2, pad=4),
-                                dict(max_displacement=20, stride2=2, pad=20)], ids=["md4", "flownetc"])
-def test_correlation_backward_matches_jax_vjp(rng, kw):
-    """df1 and df2 at 8 channels against jax.vjp of correlation_auto (its
-    hand-written VJP): atol 1e-5 of max|ref|. Both the autograd route and
-    correlation_backward_plain."""
-    f1 = rng.standard_normal((2, 9, 11, 8)).astype(np.float32)
-    f2 = rng.standard_normal((2, 9, 11, 8)).astype(np.float32)
+@pytest.mark.parametrize("kw,shape", [
+    (dict(max_displacement=4, stride2=2, pad=4), (2, 9, 11, 8)),
+    (dict(max_displacement=20, stride2=2, pad=20), (2, 9, 11, 8)),
+    (dict(max_displacement=4, stride2=1, pad=4), (2, 9, 11, 8)),
+    (dict(max_displacement=20, stride2=2, pad=20), (1, 7, 19, 6)),
+], ids=["md4", "flownetc", "md4-stride1", "flownetc-ragged-width"])
+def test_correlation_backward_matches_jax_vjp(rng, kw, shape):
+    """df1 and df2 against jax.vjp of correlation_auto (its hand-written
+    VJP): atol 1e-5 of max|ref|. Both the autograd route and
+    correlation_backward_plain; at stride2 2 and 1, and at a width of 19,
+    which cuts the CUDA kernel's 4-column runs in both of its planes."""
+    f1 = rng.standard_normal(shape).astype(np.float32)
+    f2 = rng.standard_normal(shape).astype(np.float32)
     out, vjp = jax.vjp(lambda a, b: correlation_auto(a, b, **kw), jnp.asarray(f1), jnp.asarray(f2))
     g = rng.standard_normal(out.shape).astype(np.float32)
     ref1, ref2 = (np.asarray(v) for v in vjp(jnp.asarray(g)))
