@@ -4,10 +4,11 @@
 Builds the hand-written CUDA kernels from ``flownet2_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card at the shapes FlowNet2
 gives it (warp and correlation, forward and backward, at 448x320 batch 8,
-and the correlation forward and backward also at Sintel b4's features;
-the head convs, K3, and the fused fusion-net decoder head, K4, at Sintel
-size 1024x448 batch 4), then drives the port's paths with seeded random
-weights:
+the warp forward and its d_flow also at Sintel b4's images and the
+correlation forward and backward at Sintel b4's features, the warp beside
+the nearest library call, grid_sample; the head convs, K3, and the fused
+fusion-net decoder head, K4, at Sintel size 1024x448 batch 4), then
+drives the port's paths with seeded random weights:
 
 - inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
   bfloat16) and the ``run_flownet`` CLI, checked against the same port on
@@ -143,16 +144,17 @@ def head_hmma_counts(lib) -> dict:
     return counts
 
 
-def _warp_inputs(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Normalized-range images and flows up to +-150 px: a smooth field plus
-    noise, so some targets leave the image; NaN flows in one row."""
+def _warp_inputs(dev: torch.device, n: int = N, h: int = H, w: int = W) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized-range images (n, 3, h, w) and flows up to +-150 px: a
+    smooth field plus noise, so some targets leave the image; NaN flows in
+    one row."""
     g = torch.Generator().manual_seed(SEED)
-    img = torch.rand(N, 3, H, W, generator=g) * 2 - 1
-    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32), torch.arange(W, dtype=torch.float32),
+    img = torch.rand(n, 3, h, w, generator=g) * 2 - 1
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32), torch.arange(w, dtype=torch.float32),
                             indexing="ij")
-    phase = torch.rand(N, 2, 1, 1, generator=g) * 6.283
+    phase = torch.rand(n, 2, 1, 1, generator=g) * 6.283
     smooth = 120 * torch.sin(torch.stack([xs / 53, ys / 41])[None] + phase)
-    flow = smooth + (torch.rand(N, 2, H, W, generator=g) * 2 - 1) * 30
+    flow = smooth + (torch.rand(n, 2, h, w, generator=g) * 2 - 1) * 30
     flow[:, :, 11, :7] = float("nan")
     return img.to(dev), flow.to(dev)
 
@@ -202,13 +204,12 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     ms = cuda_ms(lambda: flow_warp_cuda(img32, flow32))
     plain_ms = cuda_ms(lambda: flow_warp_plain(img32, flow32))
     print(f"[kernels] flow_warp f32 {N}x3x{H}x{W}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
-    # image and flow read, output written; 3 lerps (9 operations) per channel.
-    # No library call: grid_sample's clamping and validity conventions differ.
-    px = N * H * W
+    # No one library call fills invalid pixels: grid_sample's time, the
+    # nearest call, is nearest_library_ms (phase_warp_geometries).
     results["flow_warp"] = dict(
         name="flow_warp", route="cuda", source="flownet2_tpu_torch/csrc/warp.cu",
         replaces="flownet2_tpu/ops/pallas/warp.py:158", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        **bound(4 * px * (3 + 2 + 3), 9 * 3 * px), library_ms=None,
+        **warp_bounds(N * H * W, torch.float32)[0], library_ms=None,
     )
 
     g = torch.Generator().manual_seed(SEED + 1)
@@ -256,6 +257,7 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
               f"CUDA-core bound {cc['bound_ms']:.4f} ms ({cc['bound_by']}) ({card})")
         del a, b_, a_nhwc, b_nhwc, got
     results.update(phase_backward_kernels(dev, card, img32, flow32, f1, f2))
+    phase_warp_geometries(dev, card, results)
     return results
 
 
@@ -298,10 +300,9 @@ def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
     plain_ms = cuda_ms(lambda: flow_warp_backward_plain(img32, flow32, g32))
     # image, flow and g read, d_image and d_flow written; about 20 operations
     # per channel (4 weighted scatters, the two spatial differences). The
-    # path asks for d_flow only: d_image is neither written nor summed, about
-    # 10 operations per channel.
+    # path asks for d_flow only (warp_bounds).
     px = N * H * W
-    both, flow_only = bound(4 * px * (3 + 2 + 3 + 3 + 2), 20 * 3 * px), bound(4 * px * (3 + 2 + 3 + 2), 10 * 3 * px)
+    both, flow_only = bound(4 * px * (3 + 2 + 3 + 3 + 2), 20 * 3 * px), warp_bounds(px, torch.float32)[1]
     print(f"[kernels] flow_warp_backward f32 {N}x3x{H}x{W}: kernel {ms:.4f} ms, bound {both['bound_ms']:.4f} ms "
           f"({both['bound_by']}); d_flow only (as the path calls it) {flow_ms:.4f} ms, bound "
           f"{flow_only['bound_ms']:.4f} ms ({flow_only['bound_by']}); plain {plain_ms:.4f} ms ({card})")
@@ -374,6 +375,108 @@ def phase_backward_kernels(dev, card, img32, flow32, f1, f2) -> dict:
         del a, b, g, a_nhwc, b_nhwc
     torch.cuda.empty_cache()
     return results
+
+
+def _sample_grid(flow: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """grid_sample's (N, H, W, 2) grid for ``flow`` (N, 2, H, W): the float32
+    sample positions x + u, y + v that the warp computes, normalized for
+    align_corners=True in float64, then cast to ``dtype``. A NaN flow
+    becomes 1e4 px, far outside the image (grid_sample's backward indexes
+    out of bounds at a NaN coordinate)."""
+    h_, w_ = flow.shape[2:]
+    flow = flow.nan_to_num(nan=1e4)
+    ys, xs = torch.meshgrid(torch.arange(h_, dtype=torch.float32, device=flow.device),
+                            torch.arange(w_, dtype=torch.float32, device=flow.device), indexing="ij")
+    x2, y2 = (xs + flow[:, 0].float()).double(), (ys + flow[:, 1].float()).double()
+    return torch.stack((2 * x2 / (w_ - 1) - 1, 2 * y2 / (h_ - 1) - 1), dim=-1).to(dtype)
+
+
+def warp_bounds(px: int, dtype: torch.dtype) -> tuple[dict, dict]:
+    """K1's and K2's (d_flow only) bounds over ``px`` pixels of 3 channels,
+    image and flow both in ``dtype``: K1 reads the image and the flow and
+    writes the output, 3 lerps (9 operations) per channel; K2 reads the
+    image, the flow and g and writes d_flow, about 10 operations per
+    channel. The arithmetic is float32 in both dtypes."""
+    size = DTYPE_PEAKS[dtype][0]
+    return bound(size * px * (3 + 2 + 3), 9 * 3 * px), bound(size * px * (3 + 2 + 3 + 2), 10 * 3 * px)
+
+
+def phase_warp_geometries(dev: torch.device, card: str, results: dict) -> None:
+    """K1 and K2 (d_flow only, as the joint step calls it) at both FlowNet2
+    geometries (448x320 b8, Sintel b4 4x3x448x1024) and dtypes, each timed
+    beside its bound and the nearest library call: F.grid_sample (bilinear,
+    border, align_corners=True) equals the warp on every valid pixel, and
+    its backward with output_mask [False, True] gives d_grid alone. Neither
+    fills invalid pixels (that takes a second op), so library_ms stays null
+    and the time goes in nearest_library_ms. First holds grid_sample to
+    flow_warp_plain on the valid pixels (float64, within 1e-4), and K1 and
+    K2 at Sintel b4 to their plain versions (K1: f32 1e-5, bf16 one bf16 ulp
+    of the output range, NaN positions equal; K2's d_flow: 1e-5 / 2e-2 x
+    max|ref|, 0 at NaN flows). Times at 448x320 b8 f32 are the entries'
+    own ms and d_flow_only_ms."""
+    import torch.nn.functional as F
+
+    from flownet2_tpu_torch.ops.warp import (
+        flow_warp_backward_cuda, flow_warp_backward_plain, flow_warp_cuda, flow_warp_plain,
+    )
+
+    def library_fwd(img, grid):
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    def library_bwd(g, img, grid):  # interpolation 0: bilinear, padding 1: border
+        return torch.ops.aten.grid_sampler_2d_backward(g, img, grid, 0, 1, True, [False, True])
+
+    k1, k2 = results["flow_warp"], results["flow_warp_backward"]
+    for geom, (n_, h_, w_) in (("", (N, H, W)), ("sintel_", (SINTEL_N, SINTEL_H, SINTEL_W))):
+        img32, flow32 = _warp_inputs(dev, n_, h_, w_)
+        g32 = torch.randn(img32.shape, generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
+        ref = flow_warp_plain(img32, flow32, float("nan"))
+        ok = ~ref.isnan()
+        err = (library_fwd(img32.double(), _sample_grid(flow32, torch.float64)) - ref.double())[ok].abs().max().item()
+        print(f"[kernels] grid_sample (float64) vs flow_warp_plain {n_}x3x{h_}x{w_}, valid pixels: max abs err "
+              f"{err:.3g} (tol 1e-4)")
+        check(err <= 1e-4, f"grid_sample vs flow_warp_plain {n_}x3x{h_}x{w_}: {err} > 1e-4")
+        for dtype, rel in REL_TOL.items():
+            img, flow, g = img32.to(dtype), flow32.to(dtype), g32.to(dtype)
+            if geom:
+                for fill in (0.0, float("nan")):
+                    got = flow_warp_cuda(img, flow, fill)
+                    torch.cuda.synchronize()
+                    ref = flow_warp_plain(img, flow, fill)
+                    check(torch.equal(got.isnan(), ref.isnan()), f"warp Sintel {dtype} fill={fill}: NaN positions")
+                    err, top = abs_err_and_scale(got[~ref.isnan()], ref[~ref.isnan()])
+                    tol = 1e-5 if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
+                    check(err <= tol, f"warp Sintel {dtype} fill={fill}: max abs err {err} > {tol}")
+                _, got = flow_warp_backward_cuda(img, flow, g, need_image=False)
+                torch.cuda.synchronize()
+                _, ref = flow_warp_backward_plain(img, flow, g)
+                err2, top2 = abs_err_and_scale(got, ref)
+                check(err2 <= rel * top2 and not got[:, :, 11, :7].any(),
+                      f"warp bwd Sintel {dtype} d_flow: max abs err {err2} > {rel * top2}, or NaN flows pass a gradient")
+                print(f"[kernels] flow_warp Sintel {str(dtype)[6:]}: max abs err {err:.3g} (tol {tol:.3g}); backward d_flow "
+                      f"only {err2:.3g} (tol {rel * top2:.3g})")
+                del got, ref
+            grid = _sample_grid(flow32, dtype)
+            tag = f"{geom}{str(dtype)[6:].replace('float32', 'f32').replace('bfloat16', 'bf16')}"
+            lib1 = cuda_ms(lambda: library_fwd(img, grid))
+            lib2 = cuda_ms(lambda: library_bwd(g, img, grid))
+            b1, b2 = warp_bounds(n_ * h_ * w_, dtype)
+            if tag == "f32":  # 448x320 b8 f32: the entries' own times
+                ms1, ms2 = k1["ms"], k2["d_flow_only_ms"]
+                k1["nearest_library_ms"], k2["nearest_library_ms"] = lib1, lib2
+            else:
+                ms1 = cuda_ms(lambda: flow_warp_cuda(img, flow))
+                ms2 = cuda_ms(lambda: flow_warp_backward_cuda(img, flow, g, need_image=False))
+                k1.update({f"{tag}_ms": ms1, f"{tag}_bound_ms": b1["bound_ms"], f"{tag}_nearest_library_ms": lib1})
+                k2.update({f"d_flow_only_{tag}_ms": ms2, f"d_flow_only_{tag}_bound_ms": b2["bound_ms"],
+                           f"d_flow_only_{tag}_nearest_library_ms": lib2})
+            print(f"[kernels] flow_warp {str(dtype)[6:]} {n_}x3x{h_}x{w_}: K1 {ms1:.4f} ms, bound {b1['bound_ms']:.4f} "
+                  f"ms ({b1['bound_by']}), grid_sample {lib1:.4f} ms; K2 d_flow only {ms2:.4f} ms, bound "
+                  f"{b2['bound_ms']:.4f} ms ({b2['bound_by']}), grid_sampler_2d_backward (d_grid only) {lib2:.4f} "
+                  f"ms ({card})")
+            del img, flow, g, grid
+        del img32, flow32, g32
+        torch.cuda.empty_cache()
 
 
 def corr_bwd_bound(shape, dtype: torch.dtype = torch.float32, peak: float | None = None) -> dict:

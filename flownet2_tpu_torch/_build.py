@@ -31,7 +31,7 @@ SOURCES = (
     "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "head_conv.cu", "head_conv_tc.cu",
     "fusion_head.cu", "status.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "warp.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -32,8 +32,16 @@ bfloat16 route's weight packing) and of cuDNN's call on the same tensors.
 With ``--corr`` it runs the correlation's wrappers (``correlation_cuda``
 and ``correlation_backward_cuda`` for both gradients, FlowNetC's md 20 /
 stride2 2 on channels-last features) at the 448x320 b8 and Sintel b4
-feature shapes, and K1's and K2's (d_flow only, as the joint step calls
-it) at the 448x320 b8 images, and prints each kernel's device time per call.
+feature shapes; then K1's and K2's (d_flow only, as the joint step calls
+it; both gradients too at 448x320 b8 f32) at the 448x320 b8 and Sintel b4
+(4x3x448x1024) images, on two flow fields each: ``chip_smoke._warp_inputs``
+(a smooth field plus +-30 px of noise) and the flows the 4 warps of one
+FlowNet2 forward take (seeded random weights); it prints each kernel's
+device time per call, then the warp kernels' registers and spills from the
+build log. To hold the kernels against a parent commit's in one call,
+unpack ``git archive <commit>`` into a git-ignored directory, copy this
+script and ``chip_smoke.py`` in, and run both trees' copies in turns
+(new, parent, new, parent): each imports the package beside it.
 
 TF32 is off, as in chip_smoke.py. Imports neither jax nor the JAX package.
 """
@@ -232,13 +240,105 @@ def profile_head_layers(args, dev: torch.device) -> str:
     return "\n".join(lines)
 
 
+def forward_warp_inputs(dev: torch.device, n: int, h: int, w: int) -> list:
+    """The (image, flow) pairs, float32, that the 4 warps of one FlowNet2
+    forward (seeded random weights, seeded uniform images) hand to K1."""
+    import flownet2_tpu_torch.ops.warp as warp_ops
+    from flownet2_tpu_torch.checkpoint import init_params
+    from flownet2_tpu_torch.inference import FlowRunner
+
+    runner = FlowRunner("flownet2", init_params("flownet2", seed=SEED), device=dev)
+    rng = np.random.default_rng(SEED)
+    i0, i1 = (torch.as_tensor(rng.uniform(0, 255, (n, h, w, 3)).astype(np.float32), device=dev) for _ in range(2))
+    calls, function = [], warp_ops._FlowWarpCuda
+
+    class Record:  # flow_warp's autograd Function, recording its inputs
+        @staticmethod
+        def apply(image, flow, fill_value):
+            calls.append((image.detach().clone(), flow.detach().clone()))
+            return function.apply(image, flow, fill_value)
+
+    warp_ops._FlowWarpCuda = Record
+    try:
+        with torch.no_grad():
+            runner.run(i0, i1)
+    finally:
+        warp_ops._FlowWarpCuda = function
+    return calls
+
+
+def kernel_resources(pattern: str) -> list[str]:
+    """Registers and spills of the built kernels whose names contain
+    ``pattern``, from nvcc's ``-Xptxas -v`` log."""
+    from flownet2_tpu_torch import _build
+
+    rows, name = {}, None
+    for line in _build.build().log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if line.count("'") >= 2 else line.strip()
+        elif name and pattern in name and ("registers" in line or "spill" in line):
+            rows.setdefault(name, []).append(line.split("info    :")[-1].strip())
+    return [f"  {k}: {'; '.join(v)}" for k, v in rows.items()]
+
+
+def profile_warp(dev: torch.device, dtypes) -> list[str]:
+    """K1 and K2 (d_flow only, as the joint step asks; both gradients too at
+    448x320 b8 f32) at FlowNet2's two geometries, on chip_smoke's
+    _warp_inputs field and on the flows one forward's 4 warps take; beside
+    them, on the _warp_inputs field, the device time of the nearest library
+    calls (chip_smoke.phase_warp_geometries): grid_sample and its backward
+    with output_mask [False, True]."""
+    import torch.nn.functional as F
+
+    from chip_smoke import H, N, SINTEL_H, SINTEL_N, SINTEL_W, W, _sample_grid, _warp_inputs
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
+
+    k1_pat, k2_pat = KERNEL_PARTS["flow_warp kernel"], KERNEL_PARTS["flow_warp backward kernel"]
+
+    def library_ms(run) -> float:  # every device event of the call
+        t = _device_us(run, k1_pat, require=False)
+        return (t["kernel"] + t["other"]) / 1e3
+
+    lines = []
+    for n, h, w in ((N, H, W), (SINTEL_N, SINTEL_H, SINTEL_W)):
+        fields = [("_warp_inputs field", [_warp_inputs(dev, n, h, w)])]
+        own = forward_warp_inputs(dev, n, h, w)
+        mean_flow = np.mean([f.abs().mean().item() for _, f in own])
+        fields.append((f"one forward's {len(own)} warps (mean |flow| {mean_flow:.3g} px)", own))
+        for label, pairs in fields:
+            for dtype in dtypes:
+                k1, k2 = [], []
+                for img32, flow32 in pairs:
+                    img, flow = img32.to(getattr(torch, dtype)), flow32.to(getattr(torch, dtype))
+                    grad = torch.randn(img.shape, generator=torch.Generator().manual_seed(SEED)).to(img)
+                    k1.append(_device_us(lambda: flow_warp_cuda(img, flow), k1_pat)["kernel"] / 1e3)
+                    k2.append(_device_us(lambda: flow_warp_backward_cuda(img, flow, grad, need_image=False),
+                                         k2_pat)["kernel"] / 1e3)
+                    if len(pairs) == 1:  # the _warp_inputs field
+                        if (n, dtype) == (N, "float32"):
+                            both = _device_us(lambda: flow_warp_backward_cuda(img, flow, grad), k2_pat)["kernel"]
+                            k2.append(f"both gradients {both / 1e3:.4f}")
+                        grid = _sample_grid(flow32, img.dtype)
+                        lib1 = library_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                                                                align_corners=True))
+                        lib2 = library_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                            grad, img, grid, 0, 1, True, [False, True]))
+                        k1.append(f"grid_sample {lib1:.4f}")
+                        k2.append(f"grid_sampler_2d_backward (d_grid only) {lib2:.4f}")
+                lines.append(f"flow_warp {n}x3x{h}x{w} {dtype}, {label}: K1 "
+                             f"{', '.join(t if isinstance(t, str) else f'{t:.4f}' for t in k1)} ms per call; "
+                             f"K2 d_flow only {', '.join(t if isinstance(t, str) else f'{t:.4f}' for t in k2)} "
+                             f"ms per call")
+        del fields, own
+        torch.cuda.empty_cache()
+    return lines + ["registers and spills (nvcc -Xptxas -v):", *kernel_resources("flow_warp")]
+
+
 def profile_corr(args, dev: torch.device) -> str:
     """The correlation forward's and backward's kernels at FlowNetC's two
-    feature shapes, then K1 and K2 (d_flow only, as the joint step asks)
-    at the 448x320 b8 images."""
-    from chip_smoke import CORR_SHAPE, CORR_SINTEL_SHAPE, H, N, W, _warp_inputs
+    feature shapes, then K1 and K2 (:func:`profile_warp`)."""
+    from chip_smoke import CORR_SHAPE, CORR_SINTEL_SHAPE
     from flownet2_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
-    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
 
     g = torch.Generator().manual_seed(SEED)
     lines = []
@@ -254,14 +354,7 @@ def profile_corr(args, dev: torch.device) -> str:
             lines.append(f"correlation {n}x{c}x{h}x{w} -> 441 {dtype}: kernel {fwd['kernel'] / 1e3:.4f} ms per "
                          f"call; backward (df1 and df2) kernel {bwd['kernel'] / 1e3:.4f} ms per call")
             del a, b, gr
-    img, flow = _warp_inputs(dev)
-    grad = torch.randn(img.shape, generator=g).to(dev)
-    k1 = _device_us(lambda: flow_warp_cuda(img, flow), KERNEL_PARTS["flow_warp kernel"])
-    k2 = _device_us(lambda: flow_warp_backward_cuda(img, flow, grad, need_image=False),
-                    KERNEL_PARTS["flow_warp backward kernel"])
-    lines.append(f"flow_warp {N}x3x{H}x{W} float32: kernel {k1['kernel'] / 1e3:.4f} ms per call; backward, "
-                 f"d_flow only: kernel {k2['kernel'] / 1e3:.4f} ms per call")
-    return "\n".join(lines)
+    return "\n".join(lines + profile_warp(dev, args.dtypes))
 
 
 def main(argv=None) -> int:

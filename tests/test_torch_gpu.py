@@ -62,10 +62,21 @@ def _warp_inputs(device, n=2, c=3, h=64, w=96, seed=0):
     return img.to(device), flow.to(device)
 
 
+WARP_DTYPES = [  # (image, flow): every combination the kernels take
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+]
+
+
+def _assert_warp_equal(got, ref):
+    """NaN positions equal and the rest equal to 1e-6: kernel and plain
+    version round the same float32 lerps."""
+    np.testing.assert_array_equal(got.isnan().cpu().numpy(), ref.isnan().cpu().numpy())
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(), atol=1e-6)
+
+
 @pytest.mark.parametrize("fill", [0.0, float("nan")])
-@pytest.mark.parametrize("img_dtype,flow_dtype", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-])
+@pytest.mark.parametrize("img_dtype,flow_dtype", WARP_DTYPES)
 def test_warp_kernel_matches_plain(cuda, fill, img_dtype, flow_dtype):
     """Kernel and plain version round the same float32 lerps: equal to 1e-6,
     and NaN positions equal."""
@@ -77,8 +88,122 @@ def test_warp_kernel_matches_plain(cuda, fill, img_dtype, flow_dtype):
     assert flow_warp_cuda.launches == before + 1
     ref = flow_warp_plain(img, flow, fill)
     assert got.dtype == img_dtype
-    np.testing.assert_array_equal(got.isnan().cpu().numpy(), ref.isnan().cpu().numpy())
-    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(), atol=1e-6)
+    _assert_warp_equal(got, ref)
+
+
+# K1's and K2's edges: W 2 and 5 (no whole 4-pixel vector), 130 (a row tail
+# after the vectors) and 448 (vectors only), H 2 and 9, C 1, 3 (the
+# unrolled instance) and 5
+WARP_EDGE_SHAPES = [(c, h, w) for w in (2, 5, 130, 448) for h in (2, 9) for c in (1, 3, 5)]
+
+
+def _edge_flow(device, n, h, w, seed):
+    """Random flows up to 0.6 * max(H, W) px, and per pixel, in turn, flows
+    that land exactly on x2 = W-1, inside (W-1, W), just below 0, NaN, +inf,
+    y2 = -inf, exactly on y2 = H-1, and inside (H-1, H)."""
+    g = torch.Generator().manual_seed(seed)
+    flow = (torch.rand(n, 2, h, w, generator=g) * 2 - 1) * max(h, w) * 0.6
+    ys, xs = (t.expand(n, h, w) for t in torch.meshgrid(
+        torch.arange(h, dtype=torch.float32), torch.arange(w, dtype=torch.float32), indexing="ij"))
+    case = (torch.arange(h * w).reshape(h, w) + 3 * torch.arange(n)[:, None, None]) % 10
+    u, v = flow[:, 0], flow[:, 1]
+    for k, target, value in ((1, u, w - 1 - xs), (2, u, w - 1 - xs + 0.5), (3, u, -xs - 0.25),
+                             (7, v, h - 1 - ys), (8, v, h - 1 - ys + 0.5)):
+        target[case == k] = value[case == k]
+    u[case == 4], u[case == 5], v[case == 6] = float("nan"), float("inf"), float("-inf")
+    return flow.to(device)
+
+
+def _with_offset(t, offset):
+    """``t`` as a contiguous tensor whose storage starts ``offset`` elements
+    earlier (offset 1: the kernels' scalar path for misaligned pointers)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape).copy_(t)
+    assert out.is_contiguous() and out.storage_offset() == offset
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c,h,w", WARP_EDGE_SHAPES)
+def test_warp_kernel_edges_match_plain(cuda, c, h, w, offset):
+    """K1 at every dtype combination and fill, on shapes that split into
+    vector runs, row tails and the scalar path, with image and flow
+    starting at storage offset 0 or 1, and flows on and around each
+    validity edge: equal to the plain version to 1e-6, NaN positions equal."""
+    g = torch.Generator().manual_seed(100 * c + 10 * h + w)
+    img32 = (torch.rand(2, c, h, w, generator=g) * 2 - 1).to(cuda)
+    flow32 = _edge_flow(cuda, 2, h, w, seed=h + w + c)
+    for img_dtype, flow_dtype in WARP_DTYPES:
+        img, flow = _with_offset(img32.to(img_dtype), offset), _with_offset(flow32.to(flow_dtype), offset)
+        for fill in (0.0, float("nan")):
+            got = flow_warp_cuda(img, flow, fill)
+            torch.cuda.synchronize()
+            assert got.dtype == img_dtype
+            _assert_warp_equal(got, flow_warp_plain(img, flow, fill))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c,h,w", WARP_EDGE_SHAPES)
+def test_warp_backward_kernel_edges_match_plain(cuda, c, h, w, offset):
+    """K2 on K1's edge cases, every dtype combination: both gradients
+    within rel * max|ref| of autograd through the plain version (rel 1e-5
+    for a float32 gradient, 2e-2 for a bfloat16 one), d_flow alone equal
+    to the two-sided call's, and 0 wherever the flow is not finite."""
+    g = torch.Generator().manual_seed(100 * c + 10 * h + w)
+    img32 = (torch.rand(2, c, h, w, generator=g) * 2 - 1).to(cuda)
+    grad32 = torch.randn(2, c, h, w, generator=g).to(cuda)
+    flow32 = _edge_flow(cuda, 2, h, w, seed=h + w + c)
+    for img_dtype, flow_dtype in WARP_DTYPES:
+        img, flow = _with_offset(img32.to(img_dtype), offset), _with_offset(flow32.to(flow_dtype), offset)
+        grad = _with_offset(grad32.to(img_dtype), offset)
+        d_img, d_flow = flow_warp_backward_cuda(img, flow, grad)
+        only_flow = flow_warp_backward_cuda(img, flow, grad, need_image=False)
+        torch.cuda.synchronize()
+        ref_img, ref_flow = flow_warp_backward_plain(img, flow, grad)
+        assert d_img.dtype == img_dtype and d_flow.dtype == flow_dtype
+        _rel_close(d_img, ref_img, 1e-5 if img_dtype == torch.float32 else 2e-2)
+        _rel_close(d_flow, ref_flow, 1e-5 if flow_dtype == torch.float32 else 2e-2)
+        assert only_flow[0] is None and torch.equal(only_flow[1], d_flow)
+        assert not d_flow[~torch.isfinite(flow.float()).all(1, keepdim=True).expand_as(flow)].any()
+
+
+@pytest.mark.parametrize("n,h,w", [(70000, 2, 4), (1, 1048600, 4)], ids=["batch-70000", "rows-1048600"])
+def test_warp_kernels_grid_loops_match_plain(cuda, n, h, w):
+    """A batch above the grid's 65535 blocks in z, and rows above its
+    65535 x 16 in y: both kernels loop over the rest, float32, against the
+    plain versions (K1 to 1e-6, K2 within 1e-5 * max|ref|)."""
+    g = torch.Generator().manual_seed(n + h)
+    img = (torch.rand(n, 1, h, w, generator=g) * 2 - 1).to(cuda)
+    grad = torch.randn(n, 1, h, w, generator=g).to(cuda)
+    flow = ((torch.rand(n, 2, h, w, generator=g) * 2 - 1) * 3).to(cuda)
+    _assert_warp_equal(flow_warp_cuda(img, flow), flow_warp_plain(img, flow))
+    for got, ref in zip(flow_warp_backward_cuda(img, flow, grad), flow_warp_backward_plain(img, flow, grad)):
+        _rel_close(got, ref, 1e-5)
+
+
+def test_warp_kernels_on_a_plane_of_2_31_elements(cuda):
+    """A bfloat16 plane of 32768 x 65540 > 2^31 elements takes the 64-bit
+    tap index instance. Flows 0 everywhere but the last 8 rows, where they
+    are multiples of 1/8 up to 3 px (exact in float32 at these coordinates):
+    K1 returns the image above them, and there, like K2, equals the plain
+    version on a crop of the last 16 rows (K1 to 1e-6, K2's d_flow within
+    2e-2 * max|ref| of a bfloat16 gradient)."""
+    h, w, band = 32768, 65540, 8
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.rand(1, 1, h, w, generator=g, device=cuda, dtype=torch.bfloat16)
+    flow = torch.zeros(1, 2, h, w, device=cuda, dtype=torch.bfloat16)
+    flow[:, :, -band:] = (torch.randint(-24, 25, (1, 2, band, w), generator=g, device=cuda) / 8).bfloat16()
+    out = flow_warp_cuda(img, flow)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :, :-band], img[:, :, :-band])
+    crop = (slice(None), slice(None), slice(h - 2 * band, h))
+    _assert_warp_equal(out[crop], flow_warp_plain(img[crop], flow[crop]))
+    del out
+    grad = torch.rand(1, 1, h, w, generator=g, device=cuda, dtype=torch.bfloat16)
+    _, d_flow = flow_warp_backward_cuda(img, flow, grad, need_image=False)
+    torch.cuda.synchronize()
+    _, ref = flow_warp_backward_plain(img[crop], flow[crop], grad[crop].contiguous())
+    _rel_close(d_flow[crop][:, :, band:], ref[:, :, band:], 2e-2)
 
 
 @pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])

@@ -56,20 +56,68 @@ def _warp_inputs(rng, n=2, h=24, w=40, c=3, flow_scale=30.0):
     return img, flow
 
 
+# The geometries on which the CUDA kernels split a row into 4-pixel vector
+# runs, row tails and the scalar path (tests/test_torch_gpu.py holds them to
+# the plain version on the card): (C, H, W, storage offset of the port's
+# inputs). (3, 24, 40, 0) is _warp_inputs' own geometry.
+WARP_GEOMETRIES = [(3, 24, 40, 0), (1, 2, 2, 0), (5, 2, 5, 1), (3, 9, 5, 0), (1, 9, 130, 1), (3, 9, 130, 0),
+                   (5, 9, 448, 0), (3, 2, 448, 1)]
+WARP_GEOMETRY_IDS = [f"c{c}-{h}x{w}{'-offset1' if off else ''}" for c, h, w, off in WARP_GEOMETRIES]
+
+
+def _warp_edge_inputs(rng, c, h, w, n=2):
+    """Image and flow (NHWC) at any geometry: random flows up to 0.6 *
+    max(H, W) px, and per pixel, in turn, flows that land inside (W-1, W),
+    just below 0, at +inf, at y2 = -inf and inside (H-1, H); no exact tie
+    of the clip (x2 = 0 or W-1), where jnp.clip's derivative differs from
+    PyTorch's. Returns (img, flow, the (N, H, W) case of each pixel)."""
+    img = rng.uniform(-1, 1, (n, h, w, c)).astype(np.float32)
+    flow = rng.uniform(-1, 1, (n, h, w, 2)).astype(np.float32) * max(h, w) * 0.6
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    case = (np.arange(h * w).reshape(h, w) + 3 * np.arange(n)[:, None, None]) % 7
+    u, v = flow[..., 0], flow[..., 1]
+    for k, target, value in ((1, u, w - 1 - xs + 0.5), (2, u, -xs - 0.25), (5, v, h - 1 - ys + 0.5)):
+        target[case == k] = np.broadcast_to(value, case.shape)[case == k]
+    u[case == 3], v[case == 4] = np.inf, -np.inf
+    return img, flow, case
+
+
+def _warp_geometry_inputs(rng, c, h, w):
+    """_warp_inputs at its own geometry, else _warp_edge_inputs; and the
+    mask of pixels whose target lies inside (W-1, W)."""
+    if (c, h, w) == (3, 24, 40):
+        img, flow = _warp_inputs(rng)
+        saturated = np.zeros(flow.shape[:3], bool)
+        saturated[:, 5] = True
+        return img, flow, saturated
+    img, flow, case = _warp_edge_inputs(rng, c, h, w)
+    return img, flow, case == 1
+
+
+def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t`` as a contiguous tensor whose storage starts ``offset`` elements earlier."""
+    if not offset:
+        return t
+    out = torch.empty(t.numel() + offset, dtype=t.dtype)[offset:].view(t.shape).copy_(t)
+    assert out.is_contiguous() and out.storage_offset() == offset
+    return out
+
+
 # -- FlowWarp ---------------------------------------------------------------
 
 
 @pytest.mark.parametrize("fill", [0.0, float("nan")])
-def test_flow_warp_matches_jax_gather_and_oracle(rng, fill):
+@pytest.mark.parametrize("c,h,w,offset", WARP_GEOMETRIES, ids=WARP_GEOMETRY_IDS)
+def test_flow_warp_matches_jax_gather_and_oracle(rng, c, h, w, offset, fill):
     """atol 1e-5: both compute the same float32 lerps; NaN positions match."""
-    img, flow = _warp_inputs(rng)
-    got = nhwc(flow_warp(nchw(img), nchw(flow), fill))
+    img, flow, _ = _warp_geometry_inputs(rng, c, h, w)
+    got = nhwc(flow_warp(_offset(nchw(img), offset), _offset(nchw(flow), offset), fill))
     ref = np.asarray(flow_warp_gather(jnp.asarray(img), jnp.asarray(flow), fill))
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
     np.testing.assert_allclose(got, ref, atol=1e-5)
     flow_o = np.nan_to_num(flow, nan=1e6)  # the loop oracle cannot index NaN
     oracle = flow_warp_oracle(img, flow_o, fill)
-    got_o = nhwc(flow_warp(nchw(img), nchw(flow_o), fill))
+    got_o = nhwc(flow_warp(_offset(nchw(img), offset), _offset(nchw(flow_o), offset), fill))
     np.testing.assert_allclose(got_o, oracle, atol=1e-5)
 
 
@@ -119,29 +167,32 @@ def _warp_vjp_jax(img, flow, g, fill):
     return tuple(np.asarray(v) for v in vjp(jnp.asarray(g)))
 
 
-def _warp_grads(img, flow, g, fill):
-    """The autograd route of flow_warp (NCHW) -> NHWC gradients."""
-    ti, tf = nchw(img).requires_grad_(True), nchw(flow).requires_grad_(True)
-    d_img, d_flow = torch.autograd.grad(flow_warp(ti, tf, fill), (ti, tf), nchw(g))
+def _warp_grads(img, flow, g, fill, offset=0):
+    """The autograd route of flow_warp (NCHW) -> NHWC gradients, the
+    inputs' storage starting ``offset`` elements earlier."""
+    ti, tf = (_offset(nchw(a), offset).requires_grad_(True) for a in (img, flow))
+    d_img, d_flow = torch.autograd.grad(flow_warp(ti, tf, fill), (ti, tf), _offset(nchw(g), offset))
     return nhwc(d_img), nhwc(d_flow)
 
 
 @pytest.mark.parametrize("fill", [0.0, float("nan")])
-def test_flow_warp_backward_matches_jax_vjp(rng, fill):
+@pytest.mark.parametrize("c,h,w,offset", WARP_GEOMETRIES, ids=WARP_GEOMETRY_IDS)
+def test_flow_warp_backward_matches_jax_vjp(rng, c, h, w, offset, fill):
     """d_image and d_flow, with targets out of range and in the clamped last
     column, against jax.vjp of the gather warp: rtol/atol 1e-5. Both the
     autograd route and flow_warp_backward_plain."""
-    img, flow = _warp_inputs(rng)
-    flow[:, 7, :4, :] = 3.25  # no NaN flows here (see the next test)
+    img, flow, saturated = _warp_geometry_inputs(rng, c, h, w)
+    flow[np.isnan(flow)] = 3.25  # no NaN flows here (see the next test)
     g = rng.standard_normal(img.shape).astype(np.float32)
     ref_img, ref_flow = _warp_vjp_jax(img, flow, g, fill)
-    got_img, got_flow = _warp_grads(img, flow, g, fill)
-    plain_img, plain_flow = flow_warp_backward_plain(nchw(img), nchw(flow), nchw(g))
+    got_img, got_flow = _warp_grads(img, flow, g, fill, offset)
+    plain_img, plain_flow = flow_warp_backward_plain(*(_offset(nchw(a), offset) for a in (img, flow, g)))
     for got, ref in ((got_img, ref_img), (got_flow, ref_flow), (nhwc(plain_img), ref_img),
                      (nhwc(plain_flow), ref_flow)):
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-    assert np.abs(ref_flow).max() > 1 and np.abs(ref_img).max() > 1
-    assert not got_flow[:, 5, :, 0].any()  # x2 in (W-1, W): the clip saturates
+    least = 1 if (c, h, w) == (3, 24, 40) else 0  # some gradient passes (a 2x2 image has few valid taps)
+    assert np.abs(ref_flow).max() > least and np.abs(ref_img).max() > least
+    assert saturated.any() and not got_flow[..., 0][saturated].any()  # x2 in (W-1, W): the clip saturates
 
 
 def test_flow_warp_backward_nan_flow_is_zero_and_finite(rng):
