@@ -6,8 +6,9 @@ each against its plain PyTorch version on the card at the shapes FlowNet2
 gives it (warp and correlation, forward and backward, at 448x320 batch 8,
 the warp forward and its d_flow also at Sintel b4's images and the
 correlation forward and backward at Sintel b4's features, the warp beside
-the nearest library call, grid_sample; the head convs, K3, and the fused
-fusion-net decoder head, K4, at Sintel size 1024x448 batch 4), then
+the nearest library call, grid_sample; the head convs, K3, at Sintel size
+1024x448 batch 4; the fused fusion-net decoder head, K4, at Sintel b4 and
+448x320 b8 in both types, beside the unfused route it replaces), then
 drives the port's paths with seeded random weights:
 
 - inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
@@ -29,7 +30,7 @@ and times the nets, the train steps and each kernel with CUDA events.
     python3 chip_smoke.py          # from the repository root, one card
 
 [build] also counts the tensor-core (HMMA) instructions in the head-conv
-kernels' SASS and fails at 0. Every phase raises on failure. Standard
+kernels' and K4's bfloat16 kernel's SASS and fails at 0 in either. Every phase raises on failure. Standard
 output ends with two JSON lines:
 the kernels (name, route, source, the TPU kernel it replaces, launches in
 its path's run, max abs error against the plain version, ms beside the
@@ -41,6 +42,7 @@ Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -120,28 +122,22 @@ def phase_build() -> None:
     for line in info.log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
-    counts = head_hmma_counts(info.path)
-    print(f"[build] cuobjdump -sass: {sum(counts.values())} HMMA instructions in the head-conv kernels "
-          f"({sum(c > 0 for c in counts.values())} of {len(counts)} kernels use the tensor cores)")
-    check(sum(counts.values()) > 0, "no HMMA instruction in the head-conv kernels' SASS")
+    counts = head_hmma_counts()
+    print(f"[build] cuobjdump -sass: {sum(counts.values())} HMMA instructions in the head-conv and fusion-head "
+          f"kernels ({sum(c > 0 for c in counts.values())} of {len(counts)} kernels use the tensor cores)")
+    check(sum(c for k, c in counts.items() if "head_conv" in k or "head_deconv" in k) > 0,
+          "no HMMA instruction in the head-conv kernels' SASS")
+    fused = {k: c for k, c in counts.items() if "fusion_head_tc" in k}
+    print(f"[build]   fusion_head (K4) bf16: {sum(fused.values())} HMMA instructions")
+    check(len(fused) == 1 and sum(fused.values()) > 0, "no HMMA instruction in the K4 bf16 kernel's SASS")
 
 
-def head_hmma_counts(lib) -> dict:
-    """Tensor-core (HMMA) instructions per head-conv kernel (K3, both
-    routes) in the built library's SASS."""
+def head_hmma_counts() -> dict:
+    """Tensor-core (HMMA) instructions per head kernel (K3, both routes, and
+    K4, both routes) in the built library's SASS."""
     from flownet2_tpu_torch import _build
 
-    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            if "head_conv" in fn or "head_deconv" in fn:
-                counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+    return _build.hmma_counts(("head_conv", "head_deconv", "fusion_head"))
 
 
 def _warp_inputs(dev: torch.device, n: int = N, h: int = H, w: int = W) -> tuple[torch.Tensor, torch.Tensor]:
@@ -514,9 +510,9 @@ DTYPE_PEAKS = {torch.float32: (4, PEAK_F32_FLOPS), torch.bfloat16: (2, PEAK_BF16
 
 
 def phase_head_kernels(dev: torch.device, card: str) -> dict:
-    """K3 at each Sintel b4 geometry and K4 at Sintel b4 against their plain
-    versions (float32 and bfloat16), with times beside the plain versions,
-    the cuDNN calls and the bounds. K3's entries, head_conv (float32, CUDA
+    """K3 at each Sintel b4 geometry against its plain version (float32 and
+    bfloat16), with times beside the plain version, the cuDNN calls and the
+    bounds, then K4 (``phase_fusion_head``). K3's entries, head_conv (float32, CUDA
     cores) and head_conv_bf16 (tensor cores), sum one forward's twelve
     launches; each one's error is the worst of its type's checks."""
     import torch.nn.functional as F
@@ -591,9 +587,33 @@ def phase_head_kernels(dev: torch.device, card: str) -> dict:
             bound_by=bound(t["bytes"], t["flops"], DTYPE_PEAKS[dtype][1])["bound_by"], library_ms=t["library_ms"],
         )
 
-    # K4 at Sintel b4: concat1 (N, 162, H/2, W/2) and c0 (N, 64, H, W)
+    results["fusion_head"] = phase_fusion_head(dev, card, g)
+    return results
+
+
+# K4's geometries: (label, N, full-resolution H, W)
+FUSION_HEAD_GEOMETRIES = (("Sintel b4", SINTEL_N, SINTEL_H, SINTEL_W), ("448x320 b8", N, H, W))
+
+
+def fusion_head_flops(n: int, h: int, w: int) -> float:
+    """K4's useful operations: multiply-adds per output value times outputs
+    of inter_conv1 and predict_flow1 (half resolution), deconv0 and
+    upsample_flow1to0 (4 taps a phase), inter_conv0 and predict_flow0."""
+    hw, hw2 = h * w, h * w // 4
+    return 2 * n * (hw2 * (32 * 162 * 9 + 2 * 32 * 9) + hw * (16 * 162 * 4 + 2 * 2 * 4 + 16 * 82 * 9 + 2 * 16 * 9))
+
+
+def phase_fusion_head(dev: torch.device, card: str, g: torch.Generator) -> dict:
+    """K4 at Sintel b4 and 448x320 b8, float32 and bfloat16, against its
+    plain version (the six layers' plain versions), with times beside the
+    plain version, the unfused route it replaces (``FlowNetFusion.
+    head_unfused``: K3 and cuDNN at Sintel width, cuDNN alone at 448) and
+    the bound in each dtype. The JSON entry's plain keys are float32 at
+    Sintel b4; ``*_bf16`` keys bfloat16 there; ``at_448x320_b8`` both at the
+    other geometry."""
     from flownet2_tpu_torch.checkpoint import init_params, load_into
     from flownet2_tpu_torch.models import FlowNet2
+    from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda, fusion_head_plain, head_weights
 
     flat = init_params("flownet2", seed=SEED)
     rng = np.random.default_rng(SEED + 6)
@@ -602,48 +622,58 @@ def phase_head_kernels(dev: torch.device, card: str) -> dict:
             flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32) * 0.3
     with torch.device("meta"):
         net = FlowNet2()
-    fusion = load_into(net, flat).fusion.to(dev)
-    cat1 = torch.randn(SINTEL_N, 162, SINTEL_H // 2, SINTEL_W // 2, generator=g).to(dev)
-    c0 = torch.randn(SINTEL_N, 64, SINTEL_H, SINTEL_W, generator=g).to(dev)
-    worst, errs = 0.0, []
-    with torch.no_grad():
+    fusion32 = load_into(net, flat).fusion.to(dev)
+    entry = dict(name="fusion_head", route="cuda", source="flownet2_tpu_torch/csrc/fusion_head.cu",
+                 source_bf16="flownet2_tpu_torch/csrc/fusion_head_tc.cu",
+                 replaces="flownet2_tpu/ops/pallas/fusion_head.py:353", library_ms=None)
+    for label, n_, h_, w_ in FUSION_HEAD_GEOMETRIES:
+        cat32 = torch.randn(n_, 162, h_ // 2, w_ // 2, generator=g).to(dev)
+        c032 = torch.randn(n_, 64, h_, w_, generator=g).to(dev)
+        flops = fusion_head_flops(n_, h_, w_)
+        row = {}
         for dtype, rel in REL_TOL.items():
-            weights = tuple(t.to(dtype) for t in head_weights(fusion))
-            args = (cat1.to(dtype), c0.to(dtype))
-            got = fusion_head_cuda(*args, *weights)
-            torch.cuda.synchronize()
-            ref = fusion_head_plain(*args, *weights)
-            for what, x, y in zip(("flow0", "flow1"), got, ref):
-                check(x.shape == y.shape and x.dtype == dtype and bool(torch.isfinite(x).all()),
-                      f"fusion_head {what} {dtype}: shape, dtype, finiteness")
-                err, top = abs_err_and_scale(x, y)
-                check(err <= rel * top, f"fusion_head {what} {dtype}: max abs err {err} > {rel * top}")
-                errs.append(f"{what} {str(dtype)[6:]} {err:.3g} (tol {rel * top:.3g})")
-                if dtype == torch.float32:
+            fusion = copy.deepcopy(fusion32).to(dtype)
+            weights = head_weights(fusion)
+            cat1, c0 = cat32.to(dtype), c032.to(dtype)
+            errs = []
+            with torch.no_grad():
+                got = fusion_head_cuda(cat1, c0, *weights)
+                torch.cuda.synchronize()
+                ref = fusion_head_plain(cat1, c0, *weights)
+                worst = 0.0
+                for what, x, y in zip(("flow0", "flow1"), got, ref):
+                    check(x.shape == y.shape and x.dtype == dtype and bool(torch.isfinite(x).all()),
+                          f"fusion_head {label} {what} {dtype}: shape, dtype, finiteness")
+                    err, top = abs_err_and_scale(x, y)
+                    check(err <= rel * top, f"fusion_head {label} {what} {dtype}: max abs err {err} > {rel * top}")
+                    errs.append(f"{what} {err:.3g} (tol {rel * top:.3g})")
                     worst = max(worst, err)
-        weights = head_weights(fusion)
-        ms = cuda_ms(lambda: fusion_head_cuda(cat1, c0, *weights))
-        plain_ms = cuda_ms(lambda: fusion_head_plain(cat1, c0, *weights))
-    n_, h_, w_ = SINTEL_N, SINTEL_H, SINTEL_W
-    hw, hw2 = h_ * w_, h_ * w_ // 4
-    # multiply-adds per output value times outputs: inter_conv1, predict_flow1
-    # (half resolution), deconv0, upsample_flow1to0 (4 taps), inter_conv0,
-    # predict_flow0 (full resolution)
-    flops = 2 * n_ * (hw2 * (32 * 162 * 9 + 2 * 32 * 9) + hw * (16 * 162 * 4 + 2 * 2 * 4 + 16 * 82 * 9 + 2 * 16 * 9))
-    nbytes = 4 * (cat1.numel() + c0.numel() + sum(t.numel() for t in weights) + n_ * 2 * (hw + hw2))
-    b = bound(nbytes, flops)
-    print(f"[kernels] fusion_head Sintel b{n_}, concat1 {tuple(cat1.shape)}, c0 {tuple(c0.shape)}: max abs err "
-          f"{'; '.join(errs)}; f32 kernel {ms:.4f} ms, plain (the six cuDNN conv/deconv calls with leaky and "
-          f"concat; no single library call computes the head) {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s ({card})")
-    results["fusion_head"] = dict(
-        name="fusion_head", route="cuda", source="flownet2_tpu_torch/csrc/fusion_head.cu",
-        replaces="flownet2_tpu/ops/pallas/fusion_head.py:353", max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        **b, library_ms=None,
-    )
-    del cat1, c0, fusion, net
+                del got, ref
+                ms = cuda_ms(lambda: fusion_head_cuda(cat1, c0, *weights))
+                plain_ms = cuda_ms(lambda: fusion_head_plain(cat1, c0, *weights))
+                unfused_ms = cuda_ms(lambda: fusion.head_unfused(cat1, c0))
+            size, peak = DTYPE_PEAKS[dtype]
+            nbytes = size * (cat1.numel() + c0.numel() + sum(t.numel() for t in weights) + n_ * 2 * h_ * w_ * 5 // 4)
+            b = bound(nbytes, flops, peak)
+            print(f"[kernels] fusion_head {label} {str(dtype)[6:]}, concat1 {tuple(cat1.shape)}, c0 {tuple(c0.shape)}: "
+                  f"max abs err {'; '.join(errs)}; kernel {ms:.4f} ms, plain (the six layers' plain versions) "
+                  f"{plain_ms:.4f} ms, unfused route (head_unfused) {unfused_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s; fused {'wins' if ms < unfused_ms else 'loses'} ({card})")
+            suffix = "" if dtype == torch.float32 else "_bf16"
+            row.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms, f"unfused_ms{suffix}": unfused_ms,
+                        f"bound_ms{suffix}": b["bound_ms"], f"bound_by{suffix}": b["bound_by"],
+                        f"max_abs_err{suffix}": worst})
+            del cat1, c0, fusion, weights
+        if label == "Sintel b4":
+            entry.update(row)
+        else:
+            entry["at_448x320_b8"] = row
+        del cat32, c032
+        torch.cuda.empty_cache()
+    del fusion32, net
     torch.cuda.empty_cache()
-    return results
+    return entry
 
 
 def synthetic_pairs(n: int, h: int = H, w: int = W) -> tuple[np.ndarray, np.ndarray]:

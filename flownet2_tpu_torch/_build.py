@@ -29,9 +29,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "flownet2_tpu_torch"
 SOURCES = (
     "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "head_conv.cu", "head_conv_tc.cu",
-    "fusion_head.cu", "status.cu",
+    "fusion_head.cu", "fusion_head_tc.cu", "status.cu",
 )
-HEADERS = ("common.cuh", "warp.cuh")
+HEADERS = ("common.cuh", "warp.cuh", "mma.cuh", "fusion_head.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,8 +57,9 @@ _SIGNATURES = {
     "fn2_head_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, weight (packed), bias, out, n, cin, h, w, cout, leaky, dtype, stream
     "fn2_head_deconv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # concat1, c0, then weight and bias of inter_conv1, predict_flow1, deconv0,
-    # upsample_flow1to0, inter_conv0, predict_flow0, flow0, flow1, n, h2, w2, dtype, stream
+    # concat1, c0, then weight (packed by ops/fusion_head.pack_fusion_head_weights) and bias of
+    # inter_conv1, predict_flow1, deconv0, upsample_flow1to0, inter_conv0, predict_flow0, flow0,
+    # flow1, n, h2, w2, dtype, stream
     "fn2_fusion_head": (_P,) * 16 + (_I, _I, _I, _I, _P),
 }
 
@@ -145,6 +146,22 @@ def library() -> ctypes.CDLL:
     lib.fn2_error_string.argtypes = [ctypes.c_int]
     lib.fn2_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def hmma_counts(patterns: tuple[str, ...]) -> dict[str, int]:
+    """Tensor-core (HMMA) instructions per kernel of the built library whose
+    mangled name contains one of ``patterns``, from ``cuobjdump -sass``."""
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(build().path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if any(p in fn for p in patterns):
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def check_status(status: int, kernel: str) -> None:

@@ -53,16 +53,23 @@ class FlowNetFusion(nn.Module):
         concat1 = torch.cat([c1_1, up_feat1, up_flow1], dim=1)
         if self.fusion_head:
             flow0, flow1 = fusion_head_op.fusion_head(concat1, c0, self)
-            return {"flow0": flow0, "flow1": flow1, "flow2": flow2}
+        else:
+            flow0, flow1 = self.head_unfused(concat1, c0)
+        return {"flow0": flow0, "flow1": flow1, "flow2": flow2}
+
+    def head_unfused(self, concat1: torch.Tensor, c0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The decoder head layer by layer, the route ``fusion_head=False``
+        takes: (concat1 (N,162,H/2,W/2), c0 (N,64,H,W)) -> (flow0, flow1).
+        inter_conv1 and predict_flow1 (half resolution) run on their modules;
+        the four full-resolution layers go through ``head_block`` (K3 on the
+        card above width 512)."""
         inter1 = conv_block(self.inter_conv1, concat1, relu=False)
         flow1 = conv_block(self.predict_flow1, inter1, relu=False)
-
         up_feat0 = head_block(self.deconv0, concat1)
         up_flow0 = head_block(self.upsample_flow1to0, flow1, relu=False)
         concat0 = torch.cat([c0, up_feat0, up_flow0], dim=1)
         inter0 = head_block(self.inter_conv0, concat0, relu=False)
-        flow0 = head_block(self.predict_flow0, inter0, relu=False)
-        return {"flow0": flow0, "flow1": flow1, "flow2": flow2}
+        return head_block(self.predict_flow0, inter0, relu=False), flow1
 
 
 def fusion_apply(net: FlowNetFusion, x: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -13,7 +13,9 @@ flownet2_tpu/ops/pallas/fusion_head.py::fusion_head_pallas (K4):
 
 concat1 (N,162,H/2,W/2) and c0 (N,64,H,W) -> flow0 (N,2,H,W), flow1
 (N,2,H/2,W/2). A CUDA tensor goes to an autograd Function whose forward is
-the hand-written kernel (csrc/fusion_head.cu, one launch) and whose
+the hand-written kernel (one launch: float32 on the CUDA cores,
+csrc/fusion_head.cu; bfloat16 on the tensor cores, csrc/fusion_head_tc.cu;
+both on weights laid out by :func:`pack_fusion_head_weights`) and whose
 backward is autograd through the plain version, the JAX custom VJP's
 policy (ops/s2d.py:479-491); a CPU tensor goes to :func:`fusion_head_plain`.
 The fusion net takes this path only when built with ``fusion_head=True``
@@ -26,7 +28,14 @@ import torch
 from torch import nn
 
 from flownet2_tpu_torch import _build
-from flownet2_tpu_torch.ops.head_conv import check_cuda_inputs, head_conv2d_plain, head_deconv2d_plain, vjp_of_plain
+from flownet2_tpu_torch.ops.head_conv import (
+    check_cuda_inputs,
+    head_conv2d_plain,
+    head_deconv2d_plain,
+    pack_head_weight,
+    pack_head_weight_f32,
+    vjp_of_plain,
+)
 
 # the head's layers, in the kernel's argument order
 LAYERS = ("inter_conv1", "predict_flow1", "deconv0", "upsample_flow1to0", "inter_conv0", "predict_flow0")
@@ -38,6 +47,32 @@ CONCAT1_CHANNELS, C0_CHANNELS = 162, 64
 def head_weights(net: nn.Module) -> tuple[torch.Tensor, ...]:
     """(weight, bias) of each layer in :data:`LAYERS`, flat, from a fusion net."""
     return tuple(t for name in LAYERS for t in (getattr(net, name).weight, getattr(net, name).bias))
+
+
+def pack_fusion_head_weights(*weights: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """:func:`head_weights`' twelve tensors with each weight in the layout
+    the kernel of its dtype reads; biases as they are.
+
+    bfloat16 (tensor cores): the five convolutions as
+    :func:`~flownet2_tpu_torch.ops.head_conv.pack_head_weight` lays them out,
+    (taps, cout_pad, cin_pad) with cin_pad a multiple of 16, inter_conv1 kept
+    at its 32 output channels: (9, 32, 176), (9, 8, 32), deconv0 (16, 16,
+    176), inter_conv0 (9, 16, 96), (9, 8, 16). float32 (CUDA cores): as
+    :func:`~flownet2_tpu_torch.ops.head_conv.pack_head_weight_f32`, (cin,
+    taps, cout_pad): (162, 9, 32), (32, 9, 4), (162, 16, 16), (82, 9, 16),
+    (16, 9, 4). upsample_flow1to0, which both kernels run on the CUDA cores,
+    as pack_head_weight_f32 in both: (2, 16, 4). Packed anew on every call:
+    training changes the weights."""
+    w_i1, b_i1, w_pf1, b_pf1, w_dc, b_dc, w_up, b_up, w_i0, b_i0, w_pf0, b_pf0 = weights
+    bf16 = w_i1.dtype == torch.bfloat16
+    pack = pack_head_weight if bf16 else pack_head_weight_f32
+    i1 = pack(w_i1, deconv=False)  # 32 output channels pad to 64 there
+    i1 = (i1[:, :32] if bf16 else i1[..., :32]).contiguous()
+    return (
+        i1, b_i1, pack(w_pf1, deconv=False), b_pf1, pack(w_dc, deconv=True), b_dc,
+        pack_head_weight_f32(w_up, deconv=True), b_up, pack(w_i0, deconv=False), b_i0, pack(w_pf0, deconv=False),
+        b_pf0,
+    )
 
 
 def fusion_head(concat1: torch.Tensor, c0: torch.Tensor, net: nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
@@ -81,7 +116,10 @@ class _FusionHeadCuda(torch.autograd.Function):
 def fusion_head_cuda(
     concat1: torch.Tensor, c0: torch.Tensor, *weights: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel (csrc/fusion_head.cu) on the current stream.
+    """Launch the kernel on the current stream: float32 on the CUDA cores
+    (csrc/fusion_head.cu), bfloat16 on the tensor cores
+    (csrc/fusion_head_tc.cu), each on weights packed by
+    :func:`pack_fusion_head_weights`.
 
     Takes contiguous CUDA tensors on one device, all float32 or all
     bfloat16: concat1 (N,162,H2,W2), c0 (N,64,2 H2,2 W2) and the twelve
@@ -107,8 +145,9 @@ def fusion_head_cuda(
     flow1 = torch.empty((n, 2, h2, w2), dtype=dtype, device=concat1.device)
     if flow1.numel() == 0:
         return flow0, flow1
+    packed = pack_fusion_head_weights(*weights)
     status = _build.library().fn2_fusion_head(
-        concat1.data_ptr(), c0.data_ptr(), *(t.data_ptr() for t in weights), flow0.data_ptr(), flow1.data_ptr(),
+        concat1.data_ptr(), c0.data_ptr(), *(t.data_ptr() for t in packed), flow0.data_ptr(), flow1.data_ptr(),
         n, h2, w2, _build.DTYPE_CODES[dtype], torch.cuda.current_stream(concat1.device).cuda_stream,
     )
     _build.check_status(status, "fusion_head")

@@ -24,6 +24,7 @@ instead. It prints:
     python3 scripts/profile_slice.py --train              # train steps, 448x320 b8
     python3 scripts/profile_slice.py --head-layers        # K3 per layer at Sintel b4
     python3 scripts/profile_slice.py --corr               # correlation fwd/bwd, K1, K2: device time
+    python3 scripts/profile_slice.py --fusion-head-kernel # K4 beside the unfused route: device time
 
 With ``--head-layers`` it runs K3's wrappers on each of its Sintel b4 layer
 shapes (``chip_smoke.HEAD_GEOMETRIES``) and prints, per call, the device
@@ -80,7 +81,7 @@ KERNEL_PARTS = {
     "flow_warp backward kernel": ("flow_warp_backward_kernel",),
     HEAD_PART: (
         "head_conv_f32_kernel", "head_conv_mma_kernel"),
-    "fusion_head kernel (K4)": ("fusion_head_kernel",),
+    "fusion_head kernel (K4)": ("fusion_head",),
     "cuDNN NCHW->NHWC transposes": ("nchwToNhwc",),
     "cuDNN NHWC->NCHW transposes": ("nhwcToNchw",),
 }
@@ -240,6 +241,45 @@ def profile_head_layers(args, dev: torch.device) -> str:
     return "\n".join(lines)
 
 
+def profile_fusion_head(args, dev: torch.device) -> str:
+    """K4 (``fusion_head_cuda``) at ``chip_smoke.FUSION_HEAD_GEOMETRIES``
+    per dtype: the kernel's device time per call, the rest of the wrapper's
+    (weight packing), and every device event of the unfused route it
+    replaces (``FlowNetFusion.head_unfused``, where the package has it);
+    then the K4 kernels' registers and spills."""
+    import copy
+
+    from chip_smoke import FUSION_HEAD_GEOMETRIES, fusion_head_flops
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.models import FlowNet2
+    from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda, head_weights
+
+    with torch.device("meta"):
+        net = FlowNet2()
+    fusion32 = load_into(net, init_params("flownet2", seed=SEED)).fusion.to(dev)
+    g = torch.Generator().manual_seed(SEED)
+    pattern = KERNEL_PARTS["fusion_head kernel (K4)"]
+    lines = []
+    for label, n, h, w in FUSION_HEAD_GEOMETRIES:
+        cat32, c032 = torch.randn(n, 162, h // 2, w // 2, generator=g), torch.randn(n, 64, h, w, generator=g)
+        for dtype in args.dtypes:
+            fusion = copy.deepcopy(fusion32).to(getattr(torch, dtype))
+            cat1, c0 = (t.to(dev, getattr(torch, dtype)) for t in (cat32, c032))
+            weights = head_weights(fusion)
+            with torch.no_grad():
+                ours = _device_us(lambda: fusion_head_cuda(cat1, c0, *weights), pattern)
+                line = (f"fusion_head {label} {dtype}: kernel {ours['kernel'] / 1e3:.4f} ms "
+                        f"({fusion_head_flops(n, h, w) / ours['kernel'] / 1e6:.2f} TFLOP/s), other "
+                        f"{ours['other'] / 1e3:.4f} ms per call")
+                if hasattr(fusion, "head_unfused"):
+                    unfused = _device_us(lambda: fusion.head_unfused(cat1, c0), pattern, require=False)
+                    line += f"; unfused route {(unfused['kernel'] + unfused['other']) / 1e3:.4f} ms"
+            lines.append(line)
+            del cat1, c0, fusion, weights
+            torch.cuda.empty_cache()
+    return "\n".join(lines + kernel_resources("fusion_head"))
+
+
 def forward_warp_inputs(dev: torch.device, n: int, h: int, w: int) -> list:
     """The (image, flow) pairs, float32, that the 4 warps of one FlowNet2
     forward (seeded random weights, seeded uniform images) hand to K1."""
@@ -367,6 +407,8 @@ def main(argv=None) -> int:
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     p.add_argument("--fusion-head", action="store_true", help="FlowNet2 with the fused fusion-net decoder head")
     p.add_argument("--head-layers", action="store_true", help="K3 and cuDNN per head layer at Sintel b4")
+    p.add_argument("--fusion-head-kernel", action="store_true",
+                   help="K4 and the unfused route it replaces at Sintel b4 and 448x320 b8: device time")
     p.add_argument("--corr", action="store_true",
                    help="the correlation forward and backward at 448x320 b8 and Sintel b4, K1 and K2")
     args = p.parse_args(argv)
@@ -383,6 +425,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.head_layers:
         print(profile_head_layers(args, dev))
+    elif args.fusion_head_kernel:
+        print(profile_fusion_head(args, dev))
     elif args.corr:
         print(profile_corr(args, dev))
     elif args.train:

@@ -597,11 +597,21 @@ def _fusion_net(device, dtype, seed=5):
     return load_into(net, flat).fusion.to(device, dtype)
 
 
+# (N, H2, W2): the half-resolution sizes; K4's flow1 tile is 16 x 16
+FUSION_HEAD_SHAPES = [
+    (2, 21, 70), (1, 8, 16), (1, 40, 100),
+    (1, 15, 17), (1, 17, 15), (1, 16, 16), (1, 1, 20), (2, 9, 1), (3, 16, 16), (2, 160, 224),
+]
+
+
 @pytest.mark.parametrize("dtype,rel", DTYPE_TOLS)
-@pytest.mark.parametrize("shape", [(2, 21, 70), (1, 8, 16), (1, 40, 100)])
+@pytest.mark.parametrize("shape", FUSION_HEAD_SHAPES, ids=["x".join(map(str, s)) for s in FUSION_HEAD_SHAPES])
 def test_fusion_head_kernel_matches_plain(cuda, no_tf32, shape, dtype, rel):
     """K4 in one launch against the six plain layers, on sizes that are not
-    tile multiples (the per-stage border masks show only at the edges)."""
+    tile multiples (the per-stage border masks show only at the edges): one
+    below and one above the 16 x 16 half-resolution tile in each direction,
+    exactly one tile, a height or width of 1, batch 3, 448x320's size, and
+    odd half-resolution widths (2-byte loads in the bf16 route)."""
     n, h2, w2 = shape
     net = _fusion_net(cuda, dtype)
     g = torch.Generator().manual_seed(h2)
@@ -616,6 +626,18 @@ def test_fusion_head_kernel_matches_plain(cuda, no_tf32, shape, dtype, rel):
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == dtype
         _rel_close(a, r, rel)
+
+
+def test_fusion_head_bf16_kernel_runs_on_the_tensor_cores(cuda):
+    """K4's bfloat16 kernel has HMMA (tensor-core) instructions in its SASS;
+    its float32 kernel has none (exact float32 on the CUDA cores)."""
+    from flownet2_tpu_torch import _build
+
+    counts = _build.hmma_counts(("fusion_head",))
+    tc = {k: c for k, c in counts.items() if "fusion_head_tc" in k}
+    f32 = {k: c for k, c in counts.items() if "fusion_head_f32" in k}
+    assert len(tc) == 1 and sum(tc.values()) > 0
+    assert len(f32) == 1 and sum(f32.values()) == 0
 
 
 def test_head_autograd_matches_plain(cuda, no_tf32):

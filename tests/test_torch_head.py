@@ -377,6 +377,125 @@ def test_fusion_head_matches_jax_kernel_and_xla(rng, shape):
         np.testing.assert_allclose(nhwc(flow1), np.asarray(ref1), atol=ATOL)
 
 
+def _conv_from_packed(x, packed, bias, cout, *, tc):
+    """A 3x3 conv (pad 1) as im2col against packed weights: the tensor-core
+    layout (taps, cout_pad, cin_pad) in tap-major, channel-minor K order, or
+    the CUDA-core layout (cin, taps, cout_pad) in channel-major order."""
+    n, cin, h, w = x.shape
+    cols = F.unfold(x, 3, padding=1)  # (n, cin * 9, h * w), channel-major
+    if tc:
+        cin_pad = packed.shape[2]
+        cols = F.pad(cols.reshape(n, cin, 9, -1).transpose(1, 2), (0, 0, 0, cin_pad - cin)).reshape(n, -1, h * w)
+        wm = packed.permute(1, 0, 2).reshape(packed.shape[1], -1)
+    else:
+        wm = packed.reshape(cin * 9, -1).T
+    return (wm @ cols)[:, :cout].reshape(n, cout, h, w) + bias[:, None, None]
+
+
+def _deconv_from_packed(x, packed, bias, cout, *, tc):
+    """The k4/s2 deconv as four phases of 2x2 im2col against packed weights
+    (taps phase * 4 + a * 2 + b, in either layout of _conv_from_packed)."""
+    n, cin, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    out = x.new_zeros(n, cout, 2 * h, 2 * w)
+    for phase, (py, px) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        cols = F.unfold(xp[:, :, py:py + h + 1, px:px + w + 1], 2)  # (n, cin * 4, h * w)
+        if tc:
+            cin_pad = packed.shape[2]
+            cols = F.pad(cols.reshape(n, cin, 4, -1).transpose(1, 2), (0, 0, 0, cin_pad - cin)).reshape(n, -1, h * w)
+            wm = packed[4 * phase:4 * phase + 4].permute(1, 0, 2).reshape(packed.shape[1], -1)
+        else:
+            wm = packed[:, 4 * phase:4 * phase + 4].reshape(cin * 4, -1).T
+        out[:, :, py::2, px::2] = (wm @ cols)[:, :cout].reshape(n, cout, h, w)
+    return out + bias[:, None, None]
+
+
+def _head_from_packed(cat1, c0, packed, *, tc):
+    """The six layers of the fused head computed from
+    pack_fusion_head_weights' tensors, each in the K order its kernel sums
+    (float32 arithmetic; upsample_flow1to0 always in the CUDA-core layout)."""
+    w_i1, b_i1, w_pf1, b_pf1, w_dc, b_dc, w_up, b_up, w_i0, b_i0, w_pf0, b_pf0 = (t.float() for t in packed)
+    inter1 = _conv_from_packed(cat1, w_i1, b_i1, 32, tc=tc)
+    flow1 = _conv_from_packed(inter1, w_pf1, b_pf1, 2, tc=tc)
+    upfeat = torch_leaky_relu(_deconv_from_packed(cat1, w_dc, b_dc, 16, tc=tc))
+    upflow = _deconv_from_packed(flow1, w_up, b_up, 2, tc=False)
+    inter0 = _conv_from_packed(torch.cat([c0, upfeat, upflow], 1), w_i0, b_i0, 16, tc=tc)
+    return _conv_from_packed(inter0, w_pf0, b_pf0, 2, tc=tc), flow1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pack_fusion_head_weights_layouts(dtype):
+    """Each packed weight has its kernel's shape and the dtype, is
+    contiguous, zero in the padding and keeps every weight once; biases
+    pass through."""
+    _, _, net = _fusion_weights(seed=2)
+    weights = tuple(t.detach().to(dtype) for t in fusion_head_op.head_weights(net))
+    packed = fusion_head_op.pack_fusion_head_weights(*weights)
+    tc = dtype == torch.bfloat16
+    shapes = ([(9, 32, 176), (9, 8, 32), (16, 16, 176), (2, 16, 4), (9, 16, 96), (9, 8, 16)] if tc else
+              [(162, 9, 32), (32, 9, 4), (162, 16, 16), (2, 16, 4), (82, 9, 16), (16, 9, 4)])
+    for i, shape in enumerate(shapes):
+        w, pw = weights[2 * i], packed[2 * i]
+        assert tuple(pw.shape) == shape and pw.dtype == dtype and pw.is_contiguous()
+        kept = pw.flatten().float()
+        assert int((kept != 0).sum()) == int((w != 0).sum())
+        assert torch.equal(kept[kept != 0].sort().values, w.flatten().float()[w.flatten() != 0].sort().values)
+        assert packed[2 * i + 1] is weights[2 * i + 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_packed_fusion_head_matches_plain_and_jax(rng, dtype):
+    """pack_fusion_head_weights' layouts, summed in each kernel's K order
+    (float32 arithmetic on the dtype's weights), compute the head: against
+    fusion_head_plain, the JAX package's _fusion_head_xla and its Pallas
+    kernel on build_fusion_head_weights (interpret mode), 1e-4, borders
+    included (a shape that is no multiple of any tile)."""
+    flat, _, net = _fusion_weights(seed=3)
+    weights = tuple(t.to(dtype).float() for t in fusion_head_op.head_weights(net))
+    b, h2, w2 = 1, 11, 19
+    cat1 = rng.normal(0, 1, (b, h2, w2, 162)).astype(np.float32)
+    c0 = rng.normal(0, 1, (b, 2 * h2, 2 * w2, 64)).astype(np.float32)
+    with torch.no_grad():
+        got = _head_from_packed(nchw(cat1), nchw(c0), fusion_head_op.pack_fusion_head_weights(
+            *(t.to(dtype) for t in weights)), tc=dtype == torch.bfloat16)
+        plain = fusion_head_op.fusion_head_plain(nchw(cat1), nchw(c0), *weights)
+    for a, r in zip(got, plain):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), atol=ATOL)
+    # the same (dtype-rounded) weights in the JAX layout
+    rounded = {k: np.asarray(torch.from_numpy(np.asarray(v)).to(dtype).float()) for k, v in flat.items()}
+    p = unflatten_params(rounded)["fusion"]
+    c0_2 = jax_s2d.space_to_depth(jnp.asarray(c0))
+    refs = (jax_s2d._fusion_head_xla(jnp.asarray(cat1), c0_2, p),
+            fusion_head_pallas(jnp.asarray(cat1), c0_2, build_fusion_head_weights(p, jnp.float32), interpret=True))
+    for ref0, ref1 in refs:
+        np.testing.assert_allclose(nhwc(got[0]), np.asarray(jax_s2d.depth_to_space(ref0)), atol=ATOL)
+        np.testing.assert_allclose(nhwc(got[1]), np.asarray(ref1), atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 20), (1, 9, 33)])
+def test_head_unfused_matches_plain_and_jax(rng, shape):
+    """FlowNetFusion.head_unfused, the route fusion_head=False takes and
+    chip_smoke.py times against K4, computes the fused head's function on
+    the CPU: against fusion_head_plain and the JAX package's
+    _fusion_head_xla, 1e-4."""
+    b, h2, w2 = shape
+    flat, p, _ = _fusion_weights(seed=6)
+    net = FlowNet2()
+    checkpoint.load_into(net, flat)
+    cat1 = rng.normal(0, 1, (b, h2, w2, 162)).astype(np.float32)
+    c0 = rng.normal(0, 1, (b, 2 * h2, 2 * w2, 64)).astype(np.float32)
+    with torch.no_grad():
+        flow0, flow1 = net.fusion.head_unfused(nchw(cat1), nchw(c0))
+        plain0, plain1 = fusion_head_op.fusion_head_plain(nchw(cat1), nchw(c0),
+                                                          *fusion_head_op.head_weights(net.fusion))
+    assert flow0.shape == (b, 2, 2 * h2, 2 * w2) and flow1.shape == (b, 2, h2, w2)
+    np.testing.assert_allclose(flow0.numpy(), plain0.numpy(), atol=ATOL)
+    np.testing.assert_allclose(flow1.numpy(), plain1.numpy(), atol=ATOL)
+    ref0, ref1 = jax_s2d._fusion_head_xla(jnp.asarray(cat1), jax_s2d.space_to_depth(jnp.asarray(c0)), p)
+    np.testing.assert_allclose(nhwc(flow0), np.asarray(jax_s2d.depth_to_space(ref0)), atol=ATOL)
+    np.testing.assert_allclose(nhwc(flow1), np.asarray(ref1), atol=ATOL)
+
+
 def test_flow_runner_fusion_head_matches_jax():
     """FlowNet2 with the fused head, through FlowRunner on the CPU, against
     the JAX FlowRunner at 100x150 (adapted to 128x192): mean EPE <= 1e-3 px."""
