@@ -8,8 +8,10 @@ the warp forward and its d_flow also at Sintel b4's images and the
 correlation forward and backward at Sintel b4's features, the warp beside
 the nearest library call, grid_sample; the head convs, K3, at Sintel size
 1024x448 batch 4; the fused fusion-net decoder head, K4, at Sintel b4 and
-448x320 b8 in both types, beside the unfused route it replaces), then
-drives the port's paths with seeded random weights:
+448x320 b8 in both types, beside the unfused route it replaces; the 1-D
+(stereo) correlation forward and backward at DispNetC's FlyingThings3D
+features 4x128x144x240 and KITTI's 1x128x96x320, every single_direction and
+stride2 1 and 2), then drives the port's paths with seeded random weights:
 
 - inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
   bfloat16) and the ``run_flownet`` CLI, checked against the same port on
@@ -19,11 +21,18 @@ drives the port's paths with seeded random weights:
   its launches of every kernel, the card against the CPU and the fused head
   against the unfused one, and the ``run_flownet_many`` CLI over jobs of two
   resolutions;
+- DispNetC: ``FlowRunner("dispnetc")`` on FlyingThings3D-size frames
+  (960x540 b4, adapted to 960x576; float32 and bfloat16), one launch of the
+  1-D forward and none of the other kernels, the card against the CPU; the
+  ``run_flownet`` CLI on a KITTI-size pair (1242x375) and
+  ``run_flownet_many`` over two jobs;
 - training: ``Solver`` steps at 448x320 b8 from the port's ``BatchLoader``
   over a synthetic FlyingChairs-layout directory (the FlowNetC stage in
   float32 and bfloat16, the joint FlowNet2 loss, one S1-stage step), one
   float32 loss and gradient on the card against the CPU, and the
-  ``cli.train`` CLI with a resume;
+  ``cli.train`` CLI with a resume; then DispNetC ``Solver`` steps at the
+  768x384 b4 FlyingThings3D crop on synthetic left/right/disparity batches
+  (one 1-D forward and one backward a step), one step card against CPU;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -64,6 +73,15 @@ CORR_SHAPE = (N, 256, H // 8, W // 8)  # FlowNetC's conv3 features at 448x320
 SINTEL_N, SINTEL_FRAME = 4, (436, 1024)  # Sintel frames; FlowRunner adapts them to 448x1024
 SINTEL_H, SINTEL_W = 448, 1024
 CORR_SINTEL_SHAPE = (SINTEL_N, 256, SINTEL_H // 8, SINTEL_W // 8)
+# DispNetC: FlyingThings3D frames (960x540, adapted to 960x576) b4, KITTI
+# 2015 (1242x375, adapted to 1280x384), the FlyingThings3D training crop
+# 768x384 b4; the 1-D correlation runs on the conv2 features (stride 4)
+DISP_N, DISP_FRAME, DISP_H, DISP_W = 4, (540, 960), 576, 960
+KITTI_FRAME = (375, 1242)
+DISP_TRAIN_N, DISP_TRAIN_H, DISP_TRAIN_W = 4, 384, 768
+CORR1D = dict(max_displacement=40, kernel_size=1, stride1=1, stride2=1, pad=40, single_direction=-1)
+CORR1D_SHAPE = (DISP_N, 128, DISP_H // 4, DISP_W // 4)  # 4x128x144x240
+CORR1D_KITTI_SHAPE = (1, 128, 384 // 4, 1280 // 4)  # 1x128x96x320, KITTI's widest row
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, dense bfloat16 on the tensor cores, and device memory
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -486,6 +504,142 @@ def corr_bwd_bound(shape, dtype: torch.dtype = torch.float32, peak: float | None
                  peak or type_peak)
 
 
+def corr1d_pairs(w: int, gw: int, stride2: int, x_shift: int) -> int:
+    """Column pairs (x, j) of one row whose partner column x + (j +
+    x_shift) stride2 lies inside the map: the multiply-adds per channel that
+    the 1-D correlation needs (the others meet the zero padding)."""
+    return sum(max(0, w - abs((j + x_shift) * stride2)) for j in range(gw))
+
+
+def corr1d_bound(shape, dtype: torch.dtype = torch.float32, *, backward: bool = False,
+                 peak: float | None = None) -> dict:
+    """The 1-D correlation's bound in DispNet's configuration (41 one-sided
+    channels) at features ``shape`` (N, C, H, W) in ``dtype``: forward, f1
+    and f2 read and the 41 channels written, one multiply-add per channel
+    and in-map column pair; backward, f1, f2 and g read, df1 and df2
+    written, two. At the type's peak, or ``peak`` (PEAK_F32_FLOPS: the
+    CUDA-core bound). No library call computes a cost volume."""
+    n_, c_, h_, w_ = shape
+    size, type_peak = DTYPE_PEAKS[dtype]
+    maps, volume = n_ * c_ * h_ * w_, n_ * 41 * h_ * w_
+    macs = n_ * h_ * corr1d_pairs(w_, 41, 1, -40) * c_
+    if backward:
+        return bound(size * (4 * maps + volume), 4 * macs, peak or type_peak)
+    return bound(size * (2 * maps + volume), 2 * macs, peak or type_peak)
+
+
+def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
+    """The 1-D correlation's kernels against their plain versions on the
+    card, limits 1e-5 (f32) and 2e-2 (bf16) x max|ref|: DispNet's
+    configuration at the FlyingThings3D features 4x128x144x240 in both
+    dtypes (the forward through its wrapper, the backward through autograd),
+    each timed beside its plain version and its bound; then the forward and
+    both gradients at KITTI's 1x128x96x320 for every single_direction and
+    stride2 1 and 2, both dtypes, DispNet's configuration timed. The JSON
+    entries' plain keys are float32 at 4x128x144x240, ``*_bf16`` bfloat16
+    there, ``kitti_*`` float32 at 1x128x96x320."""
+    from flownet2_tpu_torch.ops.correlation import (
+        correlation_1d, correlation_1d_backward_cuda, correlation_1d_backward_plain, correlation_1d_cuda,
+        correlation_1d_plain,
+    )
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    wrap_kw = dict(max_displacement=40, stride2=1, single_direction=-1)
+    fwd = dict(name="correlation_1d", route="cuda", source="flownet2_tpu_torch/csrc/correlation1d.cu",
+               replaces="flownet2_tpu/ops/correlation.py:497", library_ms=None)
+    bwd = dict(name="correlation_1d_backward", route="cuda", source="flownet2_tpu_torch/csrc/correlation1d_bwd.cu",
+               replaces="flownet2_tpu/ops/correlation.py:519", library_ms=None)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    n_, _, h_, w_ = CORR1D_SHAPE
+    f1, f2 = (torch.randn(CORR1D_SHAPE, generator=gen).to(dev) for _ in range(2))
+    g = torch.randn((n_, 41, h_, w_), generator=gen).to(dev)
+    for dtype, rel in REL_TOL.items():
+        a, b, gg = f1.to(dtype), f2.to(dtype), g.to(dtype)
+        an, bn = nhwc(a), nhwc(b)
+        got = correlation_1d_cuda(an, bn, **wrap_kw)
+        torch.cuda.synchronize()
+        ref = correlation_1d_plain(a, b, **CORR1D)
+        check(got.shape == ref.shape == (n_, 41, h_, w_) and got.dtype == dtype,
+              f"correlation_1d {dtype}: shape, dtype")
+        err, top = abs_err_and_scale(got, ref)
+        check(err <= rel * top, f"correlation_1d {dtype}: max abs err {err} > {rel * top}")
+        del got, ref
+        ag, bg = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        dgot = torch.autograd.grad(correlation_1d(ag, bg, **CORR1D), (ag, bg), gg)
+        torch.cuda.synchronize()
+        dref = correlation_1d_backward_plain(a, b, gg, **CORR1D)
+        berrs, berr = [], 0.0
+        for what, x, y in zip(("df1", "df2"), dgot, dref):
+            e_, t_ = abs_err_and_scale(x, y)
+            check(x.shape == y.shape and x.dtype == dtype, f"correlation_1d bwd {what} {dtype}: shape, dtype")
+            check(e_ <= rel * t_, f"correlation_1d bwd {dtype} {what}: max abs err {e_} > {rel * t_}")
+            berrs.append(f"{what} {e_:.3g} (tol {rel * t_:.3g})")
+            berr = max(berr, e_)
+        del dgot, dref, ag, bg
+        ms = cuda_ms(lambda: correlation_1d_cuda(an, bn, **wrap_kw))
+        bms = cuda_ms(lambda: correlation_1d_backward_cuda(an, bn, gg, **wrap_kw))
+        plain_ms = cuda_ms(lambda: correlation_1d_plain(a, b, **CORR1D))
+        plain_bms = cuda_ms(lambda: correlation_1d_backward_plain(a, b, gg, **CORR1D), warmup=1, runs=3)
+        bf, bb = corr1d_bound(CORR1D_SHAPE, dtype), corr1d_bound(CORR1D_SHAPE, dtype, backward=True)
+        ccf = corr1d_bound(CORR1D_SHAPE, dtype, peak=PEAK_F32_FLOPS)
+        ccb = corr1d_bound(CORR1D_SHAPE, dtype, backward=True, peak=PEAK_F32_FLOPS)
+        dt = str(dtype)[6:]
+        print(f"[kernels] correlation_1d {dt} {CORR1D_SHAPE} NCHW -> 41 channels: max abs err {err:.3g} (tol "
+              f"{rel * top:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bf['bound_ms']:.4f} ms "
+              f"({bf['bound_by']}), CUDA-core bound {ccf['bound_ms']:.4f} ms ({ccf['bound_by']}) ({card})")
+        print(f"[kernels] correlation_1d_backward {dt} {CORR1D_SHAPE}, df1 and df2: max abs err {'; '.join(berrs)}; "
+              f"kernel {bms:.4f} ms, plain {plain_bms:.4f} ms, bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}), "
+              f"CUDA-core bound {ccb['bound_ms']:.4f} ms ({ccb['bound_by']}) ({card})")
+        suffix = "" if dtype == torch.float32 else "_bf16"
+        for entry, e, t, p, bd in ((fwd, err, ms, plain_ms, bf), (bwd, berr, bms, plain_bms, bb)):
+            entry.update({f"max_abs_err{suffix}": e, f"ms{suffix}": t, f"plain_ms{suffix}": p,
+                          f"bound_ms{suffix}": bd["bound_ms"], f"bound_by{suffix}": bd["bound_by"]})
+        del a, b, gg, an, bn
+    del f1, f2, g
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    k1, k2 = (torch.randn(CORR1D_KITTI_SHAPE, generator=gen).to(dev) for _ in range(2))
+    kn, _, kh, kw_ = CORR1D_KITTI_SHAPE
+    for sd in (-1, 0, 1):
+        for s2 in (1, 2):
+            kw = dict(max_displacement=40, kernel_size=1, stride1=1, stride2=s2, pad=40, single_direction=sd)
+            wkw = dict(max_displacement=40, stride2=s2, single_direction=sd)
+            gw = 40 // s2 + 1 if sd else 2 * (40 // s2) + 1
+            gk = torch.randn((kn, gw, kh, kw_), generator=gen).to(dev)
+            errs = []
+            for dtype, rel in REL_TOL.items():
+                a, b, gg = k1.to(dtype), k2.to(dtype), gk.to(dtype)
+                an, bn = nhwc(a), nhwc(b)
+                got = correlation_1d_cuda(an, bn, **wkw)
+                dgot = correlation_1d_backward_cuda(an, bn, gg, **wkw)
+                torch.cuda.synchronize()
+                ref = correlation_1d_plain(a, b, **kw)
+                dref = correlation_1d_backward_plain(a, b, gg, **kw)
+                for what, x, y in (("out", got, ref), ("df1", dgot[0], nhwc(dref[0])), ("df2", dgot[1], nhwc(dref[1]))):
+                    e_, t_ = abs_err_and_scale(x, y)
+                    check(x.shape == y.shape, f"correlation_1d KITTI sd={sd} stride2={s2} {what} {dtype}: shape")
+                    check(e_ <= rel * t_, f"correlation_1d KITTI sd={sd} stride2={s2} {what} {dtype}: "
+                                          f"max abs err {e_} > {rel * t_}")
+                    errs.append(f"{str(dtype)[6:]} {what} {e_:.3g} (tol {rel * t_:.3g})")
+                if (sd, s2, dtype) == (-1, 1, torch.float32):
+                    kms = cuda_ms(lambda: correlation_1d_cuda(an, bn, **wkw))
+                    kbms = cuda_ms(lambda: correlation_1d_backward_cuda(an, bn, gg, **wkw))
+                    kbf = corr1d_bound(CORR1D_KITTI_SHAPE)
+                    kbb = corr1d_bound(CORR1D_KITTI_SHAPE, backward=True)
+                    fwd.update(kitti_ms=kms, kitti_bound_ms=kbf["bound_ms"])
+                    bwd.update(kitti_ms=kbms, kitti_bound_ms=kbb["bound_ms"])
+                    print(f"[kernels] correlation_1d f32 {CORR1D_KITTI_SHAPE} (KITTI): forward {kms:.4f} ms, bound "
+                          f"{kbf['bound_ms']:.4f} ms ({kbf['bound_by']}); backward {kbms:.4f} ms, bound "
+                          f"{kbb['bound_ms']:.4f} ms ({kbb['bound_by']}) ({card})")
+                del a, b, gg, an, bn, got, dgot, ref, dref
+            print(f"[kernels] correlation_1d {CORR1D_KITTI_SHAPE} single_direction={sd} stride2={s2} ({gw} "
+                  f"channels), forward and backward: max abs err {'; '.join(errs)}")
+    torch.cuda.empty_cache()
+    return {"correlation_1d": fwd, "correlation_1d_backward": bwd}
+
+
 # K3's geometries at Sintel b4, one per distinct layer shape of a FlowNet2
 # forward: (label, input (N, Cin, H, W), weight shape, stride (0: the k4/s2
 # deconv), leaky, launches per forward)
@@ -707,7 +861,7 @@ def phase_slice(dev: torch.device, card: str, kernels: dict) -> dict:
     kernels["flow_warp"]["launches"] = got["flow_warp"]
     kernels["correlation"]["launches"] = got["correlation"]
     print(f"[slice] FlowNet2 f32 {N}x{H}x{W}: flow {flow.shape}, launches: {got}")
-    expected = dict(flow_warp=4, correlation=1, head_conv=0, fusion_head=0)
+    expected = dict(flow_warp=4, correlation=1, head_conv=0, fusion_head=0, correlation_1d=0)
     check(got == expected, f"launches {got}, expected {expected} (the head kernels route only above width 512)")
     check(flow.shape == (N, H, W, 2) and np.isfinite(flow).all(), "f32 flow shape or finiteness")
 
@@ -753,22 +907,24 @@ def phase_slice(dev: torch.device, card: str, kernels: dict) -> dict:
 
 def inference_counts() -> dict:
     """Launches of the forward kernels since their counts were last reset."""
-    from flownet2_tpu_torch.ops.correlation import correlation_cuda
+    from flownet2_tpu_torch.ops.correlation import correlation_1d_cuda, correlation_cuda
     from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda
     from flownet2_tpu_torch.ops.head_conv import head_launches
     from flownet2_tpu_torch.ops.warp import flow_warp_cuda
 
     return dict(flow_warp=flow_warp_cuda.launches, correlation=correlation_cuda.launches,
-                head_conv=head_launches(), fusion_head=fusion_head_cuda.launches)
+                head_conv=head_launches(), fusion_head=fusion_head_cuda.launches,
+                correlation_1d=correlation_1d_cuda.launches)
 
 
 def reset_inference_counts() -> None:
-    from flownet2_tpu_torch.ops.correlation import correlation_cuda
+    from flownet2_tpu_torch.ops.correlation import correlation_1d_cuda, correlation_cuda
     from flownet2_tpu_torch.ops.fusion_head import fusion_head_cuda
     from flownet2_tpu_torch.ops.head_conv import head_conv2d_cuda, head_deconv2d_cuda
     from flownet2_tpu_torch.ops.warp import flow_warp_cuda
 
-    for k in (flow_warp_cuda, correlation_cuda, head_conv2d_cuda, head_deconv2d_cuda, fusion_head_cuda):
+    for k in (flow_warp_cuda, correlation_cuda, head_conv2d_cuda, head_deconv2d_cuda, fusion_head_cuda,
+              correlation_1d_cuda):
         k.launches = 0
 
 
@@ -779,12 +935,31 @@ def flo_header(path: str) -> tuple[bytes, int, int, int]:
     return magic, w, h, os.path.getsize(path)
 
 
+def write_jobs(tmp: str, frames) -> tuple[str, list]:
+    """Each (img0, img1) of ``frames`` as job{j}_a.ppm / job{j}_b.ppm in
+    ``tmp`` and a run_flownet_many list file naming job{j}_out.flo; returns
+    the list file and each output's (path, width, height)."""
+    from flownet2_tpu_torch.core.flow_io import write_ppm
+
+    lines, outs = [], []
+    for j, (a, b) in enumerate(frames):
+        pa, pb, out = (os.path.join(tmp, f"job{j}_{x}") for x in ("a.ppm", "b.ppm", "out.flo"))
+        write_ppm(pa, a.astype(np.uint8))
+        write_ppm(pb, b.astype(np.uint8))
+        lines.append(f"{pa} {pb} {out}")
+        outs.append((out, a.shape[1], a.shape[0]))
+    listfile = os.path.join(tmp, "jobs.txt")
+    with open(listfile, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return listfile, outs
+
+
 def phase_sintel(dev: torch.device, card: str, kernels: dict) -> dict:
     """FlowNet2 at Sintel size through FlowRunner (1024x436 frames, adapted
     to 1024x448, b4), float32 and bfloat16, without and with the fused
     head; then run_flownet_many over two Sintel-size jobs and one 448x320."""
     from flownet2_tpu_torch.checkpoint import init_params
-    from flownet2_tpu_torch.core.flow_io import read_flo, write_ppm
+    from flownet2_tpu_torch.core.flow_io import read_flo
     from flownet2_tpu_torch.inference import FlowRunner
 
     params = init_params("flownet2", seed=SEED)
@@ -798,7 +973,8 @@ def phase_sintel(dev: torch.device, card: str, kernels: dict) -> dict:
             reset_inference_counts()
             flows[label] = flow = r.batch(img0, img1)
             got = inference_counts()
-            expected = dict(flow_warp=4, correlation=1, head_conv=8 if fused else 12, fusion_head=int(fused))
+            expected = dict(flow_warp=4, correlation=1, head_conv=8 if fused else 12, fusion_head=int(fused),
+                            correlation_1d=0)
             print(f"[sintel] FlowNet2 {label} {fw}x{fh} b{SINTEL_N}: flow {flow.shape}, launches {got}")
             check(got == expected, f"{label}: launches {got}, expected {expected}")
             check(flow.shape == (SINTEL_N, fh, fw, 2) and np.isfinite(flow).all(), f"{label}: flow shape, finiteness")
@@ -838,17 +1014,7 @@ def phase_sintel(dev: torch.device, card: str, kernels: dict) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         small0, small1 = synthetic_pairs(1)
-        frames = [(img0[0], img1[0]), (img0[1], img1[1]), (small0[0], small1[0])]
-        lines, outs = [], []
-        for j, (a, b) in enumerate(frames):
-            pa, pb, out = (os.path.join(tmp, f"job{j}_{x}") for x in ("a.ppm", "b.ppm", "out.flo"))
-            write_ppm(pa, a.astype(np.uint8))
-            write_ppm(pb, b.astype(np.uint8))
-            lines.append(f"{pa} {pb} {out}")
-            outs.append((out, a.shape[1], a.shape[0]))
-        listfile = os.path.join(tmp, "jobs.txt")
-        with open(listfile, "w") as f:
-            f.write("\n".join(lines) + "\n")
+        listfile, outs = write_jobs(tmp, [(img0[0], img1[0]), (img0[1], img1[1]), (small0[0], small1[0])])
         cmd = [sys.executable, "-m", "flownet2_tpu_torch.cli.run_flownet_many", "random", "flownet2", listfile,
                "--gpu", "0"]
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -863,6 +1029,163 @@ def phase_sintel(dev: torch.device, card: str, kernels: dict) -> dict:
     return timings
 
 
+def phase_dispnet(dev: torch.device, card: str, kernels: dict) -> dict:
+    """DispNetC through FlowRunner on FlyingThings3D-size frames (960x540,
+    adapted to 960x576, b4), float32 and bfloat16: one launch of the 1-D
+    forward a batch and none of the other kernels; pair 0 on the card
+    against the port on the CPU (mean EPE <= 1e-2 px over both output
+    channels); timed. Then the run_flownet CLI with dispnetc on a KITTI 2015
+    size pair (1242x375) and run_flownet_many over two jobs (1242x375 and
+    960x540)."""
+    from flownet2_tpu_torch.checkpoint import init_params
+    from flownet2_tpu_torch.core.flow_io import read_flo
+    from flownet2_tpu_torch.inference import FlowRunner
+
+    params = init_params("dispnetc", seed=SEED)
+    fh, fw = DISP_FRAME
+    img0, img1 = synthetic_pairs(DISP_N, fh, fw)
+    runners, flows = {}, {}
+    expected = dict(flow_warp=0, correlation=0, head_conv=0, fusion_head=0, correlation_1d=1)
+    for dtype in ("float32", "bfloat16"):
+        label = "f32" if dtype == "float32" else "bf16"
+        runners[label] = r = FlowRunner("dispnetc", params, device=dev, dtype=dtype)
+        reset_inference_counts()
+        flows[label] = flow = r.batch(img0, img1)
+        got = inference_counts()
+        print(f"[dispnet] DispNetC {label} {fw}x{fh} b{DISP_N}: flow {flow.shape}, launches {got}")
+        check(got == expected, f"dispnetc {label}: launches {got}, expected {expected}")
+        check(flow.shape == (DISP_N, fh, fw, 2) and np.isfinite(flow).all(),
+              f"dispnetc {label}: flow shape, finiteness")
+        if label == "f32":
+            kernels["correlation_1d"]["launches"] = got["correlation_1d"]
+
+    t0 = time.perf_counter()
+    ref0 = FlowRunner("dispnetc", params, device="cpu")(img0[0], img1[0])
+    epe = float(np.sqrt(((flows["f32"][0] - ref0) ** 2).sum(-1)).mean())
+    print(f"[dispnet] pair 0, card vs the port on the CPU ({time.perf_counter() - t0:.1f} s on the CPU): mean EPE "
+          f"{epe:.3g} px (limit 1e-2); mean |disparity| {np.abs(ref0[..., 0]).mean():.3g} px")
+    check(epe <= 1e-2, f"dispnetc card vs CPU mean EPE {epe} > 1e-2")
+
+    timings = {}
+    i0, i1 = torch.as_tensor(img0, device=dev), torch.as_tensor(img1, device=dev)
+    for label, r in runners.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: r.run(i0, i1), warmup=3, runs=7)
+        mem = torch.cuda.max_memory_allocated()
+        timings[label] = dict(ms=ms, pairs_per_s=DISP_N / (ms / 1e3), max_memory_allocated=mem)
+        print(f"[times] DispNetC {label} {fw}x{fh} b{DISP_N}: {ms:.3f} ms/batch, {DISP_N / (ms / 1e3):.2f} pairs/s, "
+              f"max_memory_allocated {mem / 2**20:.1f} MiB ({card})")
+    del runners, i0, i1
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kh, kw = KITTI_FRAME
+        k0, k1 = synthetic_pairs(1, kh, kw)
+        listfile, outs = write_jobs(tmp, [(k0[0], k1[0]), (img0[0], img1[0])])
+        single = os.path.join(tmp, "kitti.flo")
+        one = [sys.executable, "-m", "flownet2_tpu_torch.cli.run_flownet", "random", "dispnetc",
+               *(os.path.join(tmp, f"job0_{x}.ppm") for x in "ab"), single, "--gpu", "0"]
+        many = [sys.executable, "-m", "flownet2_tpu_torch.cli.run_flownet_many", "random", "dispnetc", listfile,
+                "--gpu", "0"]
+        for cmd in (one, many):
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"{cmd[2]} dispnetc exit {proc.returncode}: {proc.stderr[-2000:]}")
+        for out, w, h in [(single, kw, kh)] + outs:
+            magic, fw_, fh_, size = flo_header(out)
+            check(magic == b"PIEH" and (fw_, fh_) == (w, h) and size == 12 + w * h * 8,
+                  f"{out}: .flo header {magic!r} {fw_}x{fh_}, {size} bytes")
+            check(np.isfinite(read_flo(out)).all(), f"{out}: finiteness")
+    print(f"[dispnet] CLI: run_flownet random dispnetc on a {kw}x{kh} pair --gpu 0 -> .flo PIEH {kw}x{kh}; "
+          f"run_flownet_many random dispnetc jobs.txt --gpu 0 -> 2 .flo files ({kw}x{kh}, {fw}x{fh}), finite")
+    return timings
+
+
+def stereo_batch(n: int, h: int, w: int, seed: int) -> dict:
+    """A seeded synthetic left/right/disparity batch: a smooth texture as the
+    left frame, the right frame sampled from it along a smooth one-sided
+    disparity of 2-30 px (right at x shows what left shows at x + d), and
+    -d as the (N, H, W, 1) disparity (the DisparityData sign)."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    left, right, disp = (np.zeros((n, h, w, k), np.float32) for k in (3, 3, 1))
+    for i in range(n):
+        texture = random_texture(rng)
+        f, p = rng.uniform(0.005, 0.02, 2), rng.uniform(0, 2 * np.pi, 2)
+        d = 16 + 14 * np.sin(xs * f[0] + p[0]) * np.cos(ys * f[1] + p[1])
+        left[i], right[i], disp[i, ..., 0] = texture(xs, ys), texture(xs + d, ys), -d
+    return {"img0": left, "img1": right, "flow": disp}
+
+
+def phase_dispnet_train(dev: torch.device, card: str, kernels: dict) -> dict:
+    """DispNetC Solver steps (Adam, float32) at the FlyingThings3D training
+    crop 768x384 b4 on synthetic left/right/disparity batches: one launch of
+    the 1-D forward and one of its backward a step, and no other kernel;
+    then one step's loss and gradients on the card against the port on the
+    CPU (loss rtol 1e-4; relative L2 of all tensors and of the median tensor
+    <= 1e-3, as phase_train holds them); a timed step."""
+    from flownet2_tpu_torch.ops.correlation import correlation_1d_backward_cuda, correlation_1d_cuda
+    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import dispnet_c_loss
+
+    sched = FLOWNET_SCHEDULES["S_long"]
+    config = SolverConfig(solver_type="adam", lr_policy=sched["policy"], base_lr=sched["base_lr"],
+                          gamma=sched["gamma"], stepvalues=sched["stepvalues"], max_iter=sched["max_iter"],
+                          momentum=0.9, momentum2=0.999)
+    n_, h_, w_ = DISP_TRAIN_N, DISP_TRAIN_H, DISP_TRAIN_W
+    batches = [stereo_batch(n_, h_, w_, SEED + 20 + i) for i in range(3)]
+    net = _net("dispnetc")
+    solver = Solver(config, dispnet_c_loss, net, device=dev)
+    reset_inference_counts()
+    correlation_1d_backward_cuda.launches = 0
+    losses = [solver.step({k: torch.as_tensor(v, device=dev) for k, v in b.items()})[0].item() for b in batches[:2]]
+    got = inference_counts(), correlation_1d_backward_cuda.launches
+    print(f"[train] dispnetc f32 {w_}x{h_} b{n_}: losses {', '.join(f'{x:.6g}' for x in losses)}; launches in 2 "
+          f"steps {got[0]}, 1-D backward {got[1]}")
+    check(all(np.isfinite(losses)), "dispnetc: loss not finite")
+    expected = dict(flow_warp=0, correlation=0, head_conv=0, fusion_head=0, correlation_1d=2)
+    check(got == (expected, 2), f"dispnetc train: launches {got}, expected {expected} and 2 backward")
+    kernels["correlation_1d_backward"]["launches"] = got[1] // 2
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batches[2].items()}
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: solver.step(batch), warmup=2, runs=5)
+    mem = torch.cuda.max_memory_allocated()
+    timings = {"dispnetc f32": dict(ms=ms, pairs_per_s=n_ / (ms / 1e3), max_memory_allocated=mem)}
+    print(f"[times] train step dispnetc f32 {w_}x{h_} b{n_}: {ms:.3f} ms/step, {n_ / (ms / 1e3):.2f} pairs/s, "
+          f"max_memory_allocated {mem / 2**20:.1f} MiB ({card})")
+    del solver, net, batch
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = True
+    loss, grads = loss_and_grads("dispnetc", SEED, dispnet_c_loss, batches[0], dev)
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = loss_and_grads("dispnetc", SEED, dispnet_c_loss, batches[0], "cpu")
+    torch.backends.cudnn.deterministic = False
+    e = grad_errors(grads, ref_grads)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"[train] dispnetc f32 step {w_}x{h_} b{n_}, card vs CPU ({time.perf_counter() - t0:.1f} s on the CPU): "
+          f"loss {loss:.6g} vs {ref_loss:.6g} (rel {rel:.3g}, limit 1e-4); gradients of {e['tensors']} tensors: "
+          f"relative L2 of all {e['all']:.3g} (limit 1e-3), median tensor {e['median']:.3g} (limit 1e-3), worst "
+          f"tensor {e['worst_key']} {e['worst']:.3g}, {e['above_1e-3']} tensor(s) above 1e-3")
+    check(rel <= 1e-4, f"dispnetc: card vs CPU loss rel err {rel}")
+    check(e["all"] <= 1e-3, f"dispnetc: card vs CPU gradients, relative L2 of all {e['all']}")
+    check(e["median"] <= 1e-3, f"dispnetc: card vs CPU gradients, median tensor {e['median']}")
+    return timings
+
+
+def random_texture(rng: np.random.Generator):
+    """texture(x, y) -> (..., 3) RGB in 0-255: five seeded slanted plane
+    waves per channel, defined at any real coordinates."""
+    freq = rng.uniform(0.02, 0.12, (5, 3))
+    phase = rng.uniform(0, 2 * np.pi, (5, 3))
+    slant = rng.uniform(-1, 1, (5, 3))
+
+    def texture(x, y):
+        waves = sum(np.sin(x[..., None] * freq[k] + y[..., None] * freq[k] * slant[k] + phase[k]) for k in range(5))
+        return np.clip(127.5 + 25 * waves, 0, 255)
+
+    return texture
+
+
 def write_chairs(root: str, n: int) -> None:
     """n FlyingChairs-layout pairs at HxW: a seeded texture, the second
     frame sampled from it along a smooth known flow, and that flow as -gt.flo
@@ -872,14 +1195,7 @@ def write_chairs(root: str, n: int) -> None:
     rng = np.random.default_rng(SEED + 4)
     ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
     for i in range(n):
-        freq = rng.uniform(0.02, 0.12, (5, 3))
-        phase = rng.uniform(0, 2 * np.pi, (5, 3))
-        slant = rng.uniform(-1, 1, (5, 3))
-
-        def texture(x, y):
-            waves = sum(np.sin(x[..., None] * freq[k] + y[..., None] * freq[k] * slant[k] + phase[k]) for k in range(5))
-            return np.clip(127.5 + 25 * waves, 0, 255)
-
+        texture = random_texture(rng)
         amp, (fx, fy), (px, py) = rng.uniform(2, 12, 2), rng.uniform(0.005, 0.02, 2), rng.uniform(0, 6.28, 2)
         flow = np.stack([amp[0] * np.sin(ys * fy + px), amp[1] * np.cos(xs * fx + py)], axis=-1).astype(np.float32)
         write_ppm(os.path.join(root, f"{i:07d}-img0.ppm"), texture(xs, ys).astype(np.uint8))
@@ -1032,11 +1348,14 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(dev, smi)
     kernels.update(phase_head_kernels(dev, smi))
+    kernels.update(phase_corr1d_kernels(dev, smi))
     phase_slice(dev, smi, kernels)
     phase_sintel(dev, smi, kernels)
+    phase_dispnet(dev, smi, kernels)
     phase_train(dev, smi, kernels)
+    phase_dispnet_train(dev, smi, kernels)
     order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",
-             "fusion_head")
+             "fusion_head", "correlation_1d", "correlation_1d_backward")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -28,8 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "flownet2_tpu_torch"
 SOURCES = (
-    "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "head_conv.cu", "head_conv_tc.cu",
-    "fusion_head.cu", "fusion_head_tc.cu", "status.cu",
+    "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "correlation1d.cu", "correlation1d_bwd.cu",
+    "head_conv.cu", "head_conv_tc.cu", "fusion_head.cu", "fusion_head_tc.cu", "status.cu",
 )
 HEADERS = ("common.cuh", "warp.cuh", "mma.cuh", "fusion_head.cuh")
 NVCC_FLAGS = (
@@ -52,6 +52,11 @@ _SIGNATURES = {
     # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement,
     # stride2, dtype, stream
     "fn2_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # f1, f2, out, n, h, w, c, max_displacement, stride2, single_direction, dtype, stream
+    "fn2_correlation_1d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement, stride2,
+    # single_direction, dtype, stream
+    "fn2_correlation_1d_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, weight (packed by ops/head_conv.pack_head_weight_f32 / pack_head_weight), bias, out, n, cin,
     # h, w, cout, k, stride, leaky, dtype, stream
     "fn2_head_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

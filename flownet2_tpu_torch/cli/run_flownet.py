@@ -8,7 +8,7 @@ scripts/run-flownet.py):
 
 - ``weights``: a flat ``.npz`` written by ``flownet2_tpu.checkpoint.save_params``,
   or ``random`` for seeded random weights (seed 0);
-- ``model``: flownets|flownetc|flownet2-sd|flownet2-cs|flownet2-css|flownet2, or
+- ``model``: flownets|flownetc|flownet2-sd|flownet2-cs|flownet2-css|flownet2|dispnetc, or
   a deploy-template path whose basename names one;
 - ``--gpu N`` runs on ``cuda:N``; ``--device`` names a device instead (``cpu``
   for tests). Without a card and without ``--device``, the CLI exits with
@@ -94,13 +94,9 @@ def main(argv=None) -> int:
             raise SystemExit(f"input does not exist: {f}")
 
     from flownet2_tpu_torch.core.flow_io import read_image, write_flo
-    from flownet2_tpu_torch.inference import FlowRunner, check_model
+    from flownet2_tpu_torch.inference import FlowRunner
 
     model = resolve_model_name(args.deployproto)
-    try:
-        check_model(model)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
     device = device_from_args(args)
     runner = FlowRunner(model, load_weights(args.caffemodel, model), device=device, dtype=args.dtype)
     img0 = read_image(args.img0)

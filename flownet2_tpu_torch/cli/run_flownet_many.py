@@ -59,13 +59,9 @@ def main(argv=None) -> int:
 
     from flownet2_tpu_torch.cli.run_flownet import device_from_args, load_weights, resolve_model_name
     from flownet2_tpu_torch.core.flow_io import read_image, write_flo
-    from flownet2_tpu_torch.inference import FlowRunner, check_model
+    from flownet2_tpu_torch.inference import FlowRunner
 
     model = resolve_model_name(args.deployproto)
-    try:
-        check_model(model)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
     device = device_from_args(args)
     runner = FlowRunner(model, load_weights(args.caffemodel, model), device=device, dtype=args.dtype)
     for i, (img0, img1, out) in enumerate(jobs):

@@ -19,8 +19,9 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
 
 Not yet in the port, each refused with a message: augmentation (a run
 without ``--no-augment``), more than one card (``--gpu all`` or a list),
-``--device-cache``, ``--recompute-mean``, ``--write-augmented`` and
-``--steps-per-dispatch``.
+``--device-cache``, ``--recompute-mean``, ``--write-augmented``,
+``--steps-per-dispatch``, and ``--model dispnetc`` (no disparity reader yet;
+``train.objectives.LOSSES["dispnetc"]`` trains it through ``Solver``).
 """
 
 from __future__ import annotations
@@ -67,6 +68,9 @@ def _refuse_unported(args) -> None:
                         ("--steps-per-dispatch", args.steps_per_dispatch)):
         if value:
             raise SystemExit(f"{flag} is not ported to PyTorch yet")
+    if args.model == "dispnetc":
+        raise SystemExit("--model dispnetc trains on disparity, which the PyTorch port cannot read yet "
+                         "(the JAX package reads it from packed records and LMDB)")
     if args.device is None and not args.gpu.isdigit():
         raise SystemExit(f"--gpu {args.gpu}: the PyTorch port trains on one card; pass one index")
 

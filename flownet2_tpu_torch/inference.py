@@ -51,7 +51,10 @@ def _make_forward(model: str) -> Callable:
     }
     if model in cascades:
         return cascades[model]
-    quarter = {"flownets": _s_quarter, "flownetc": _c_quarter, "flownet2-sd": _sd_quarter}[model]
+    # DispNetC takes the left/right pair as FlowNetC takes its two frames
+    quarter = {
+        "flownets": _s_quarter, "flownetc": _c_quarter, "flownet2-sd": _sd_quarter, "dispnetc": _c_quarter,
+    }[model]
 
     def forward(net, img0, img1):
         flow_q, post_scale = quarter(net, *normalize_images(img0, img1))
@@ -62,14 +65,10 @@ def _make_forward(model: str) -> Callable:
 
 # model name -> seed -> random weights in the JAX package's flat layout
 MODEL_INITS = {name: partial(init_params, name) for name in NETS}
-MODEL_NAMES = (*MODEL_INITS, "dispnetc")
+MODEL_NAMES = tuple(MODEL_INITS)
 
 
 def check_model(model: str) -> None:
-    if model == "dispnetc":
-        raise NotImplementedError(
-            "dispnetc needs the 1-D correlation, which the PyTorch port does not have yet"
-        )
     if model not in MODEL_INITS:
         raise ValueError(f"unknown model {model!r}; choose from {MODEL_NAMES}")
 
@@ -114,7 +113,9 @@ class FlowRunner:
         x0 = resample(to_nchw(img0.float()), ah, aw).to(self.dtype)
         x1 = resample(to_nchw(img1.float()), ah, aw).to(self.dtype)
         flow = self._forward(self.net, x0, x1)
-        # back to the input size, u and v rescaled per axis
+        # back to the input size, u and v rescaled per axis; dispnetc's one
+        # disparity channel broadcasts to (d * scale_w, d * scale_h), as the
+        # JAX runner's output does
         flow = resample(flow.float(), h, w, antialias=False)
         scale = torch.tensor([geom.scale_width, geom.scale_height], device=flow.device)
         return to_nhwc(flow * scale.view(1, 2, 1, 1))

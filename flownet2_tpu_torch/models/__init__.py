@@ -5,6 +5,7 @@ package's. Layer names follow the JAX parameter names, so the JAX package's
 weights load through ``flownet2_tpu_torch.checkpoint``.
 """
 
+from flownet2_tpu_torch.models.dispnet import DispNetC, dispnet_c_apply
 from flownet2_tpu_torch.models.flownet2 import (
     DIV_FLOW,
     FlowNet2,
@@ -27,16 +28,19 @@ NETS = {
     "flownet2-cs": FlowNet2,
     "flownet2-css": FlowNet2,
     "flownet2": FlowNet2,
+    "dispnetc": DispNetC,
 }
 
 __all__ = [
     "NETS",
     "DIV_FLOW",
+    "DispNetC",
     "FlowNet2",
     "FlowNetC",
     "FlowNetFusion",
     "FlowNetS",
     "FlowNetSD",
+    "dispnet_c_apply",
     "flownet2_apply",
     "flownet2_cs_apply",
     "flownet2_css_apply",

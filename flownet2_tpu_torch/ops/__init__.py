@@ -6,7 +6,8 @@
 - ``downsample``   — the NaN-aware area downsample of ground truth.
 - ``losses``       — L1/EPE, Lpq and the multi-scale loss.
 - ``warp``         — FlowWarp: CUDA kernels (forward, backward) + plain PyTorch version.
-- ``correlation``  — cost volume: CUDA kernels (forward, backward) + plain PyTorch version.
+- ``correlation``  — cost volume, 2-D (FlowNetC) and 1-D (DispNetC): CUDA kernels
+                     (forward, backward) + plain PyTorch versions.
 - ``head_conv``    — the full-resolution head convs and deconvs (bias, leaky
                      fused): CUDA kernels + plain PyTorch versions, and the
                      width routing.

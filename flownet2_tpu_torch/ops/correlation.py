@@ -21,6 +21,14 @@ and raise NotImplementedError otherwise (and ValueError where a kernel's
 wrapper refuses a shape); a CPU tensor goes to
 :func:`correlation_plain`, which covers every configuration and which
 autograd differentiates.
+
+The 1-D (stereo) correlation of DispNetC (``correlation_1d``; reference
+correlation_layer1d.{cpp,cu}) pads the width only, has no vertical
+displacement, and searches one side (``single_direction`` -1 / +1: gr + 1
+channels) or both (0: 2*gr + 1). Its CUDA kernels (csrc/correlation1d.cu,
+csrc/correlation1d_bwd.cu) cover DispNet's configuration (multiply, k=1,
+stride1=1, pad == max_displacement) and raise NotImplementedError
+otherwise; :func:`correlation_1d_plain` covers every configuration.
 """
 
 from __future__ import annotations
@@ -243,3 +251,219 @@ def correlation_backward_cuda(
 
 
 correlation_backward_cuda.launches = 0  # kernel launches since the last reset
+
+
+# -- 1-D (stereo) correlation ---------------------------------------------------
+
+
+def _corr1d_geometry(max_displacement: int, stride2: int, single_direction: int) -> tuple[int, int]:
+    """(gw, x_shift): the channel count and the displacement of channel 0 in
+    units of stride2 (flownet2_tpu/ops/correlation.py::_corr1d_geometry)."""
+    gr = max_displacement // stride2
+    if single_direction != 0:
+        return gr + 1, (-gr if single_direction < 0 else 0)
+    return 2 * gr + 1, -gr
+
+
+def correlation_1d_output_shape(
+    height: int, width: int, *, max_displacement: int, kernel_size: int = 1,
+    stride1: int = 1, stride2: int = 1, pad: int = 0, single_direction: int = 0,
+) -> tuple[int, int, int]:
+    """(out_h, out_w, out_channels) per correlation_layer1d.cpp: the width
+    is padded, the height is not."""
+    kr = (kernel_size - 1) // 2
+    out_h = math.ceil((height - 2 * kr) / stride1)
+    out_w = math.ceil((width + 2 * pad - 2 * (max_displacement + kr)) / stride1)
+    return out_h, out_w, _corr1d_geometry(max_displacement, stride2, single_direction)[0]
+
+
+def correlation_1d(
+    f1: torch.Tensor, f2: torch.Tensor, *, max_displacement: int, kernel_size: int = 1,
+    stride1: int = 1, stride2: int = 1, pad: int = 0, single_direction: int = 0, multiply: bool = True,
+) -> torch.Tensor:
+    """Horizontal cost volume of f1 vs f2, both (N, C, H, W) -> (N, gw, out_h, out_w)."""
+    if f1.device.type == "cuda":
+        if not (multiply and kernel_size == 1 and stride1 == 1 and pad == max_displacement):
+            raise NotImplementedError(
+                "the CUDA 1-D correlation covers multiply mode with kernel_size=1, "
+                "stride1=1 and pad == max_displacement only"
+            )
+        return _Correlation1dCuda.apply(f1, f2, max_displacement, stride2, single_direction)
+    if f1.device.type == "cpu" and f2.device.type == "cpu":
+        return correlation_1d_plain(
+            f1, f2, max_displacement=max_displacement, kernel_size=kernel_size, stride1=stride1,
+            stride2=stride2, pad=pad, single_direction=single_direction, multiply=multiply,
+        )
+    raise ValueError(f"correlation_1d: unsupported devices {f1.device} / {f2.device}")
+
+
+class _Correlation1dCuda(torch.autograd.Function):
+    """The 1-D CUDA kernels under autograd; the forward's channels-last
+    copies are saved for the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride2, single_direction):
+        f1c, f2c = f1.permute(0, 2, 3, 1).contiguous(), f2.permute(0, 2, 3, 1).contiguous()
+        ctx.save_for_backward(f1c, f2c)
+        ctx.corr = dict(max_displacement=max_displacement, stride2=stride2, single_direction=single_direction)
+        return correlation_1d_cuda(f1c, f2c, **ctx.corr)
+
+    @staticmethod
+    def backward(ctx, grad):
+        f1c, f2c = ctx.saved_tensors
+        need_f1, need_f2 = ctx.needs_input_grad[:2]
+        df1, df2 = correlation_1d_backward_cuda(
+            f1c, f2c, grad.to(f1c.dtype).contiguous(), **ctx.corr, need_f1=need_f1, need_f2=need_f2,
+        )
+        return tuple(None if d is None else d.permute(0, 3, 1, 2) for d in (df1, df2)) + (None, None, None)
+
+
+def correlation_1d_plain(
+    f1: torch.Tensor, f2: torch.Tensor, *, max_displacement: int, kernel_size: int = 1,
+    stride1: int = 1, stride2: int = 1, pad: int = 0, single_direction: int = 0, multiply: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version (flownet2_tpu/ops/correlation.py::correlation_1d):
+    a loop over the displacements of width-padded, shifted slices with a
+    channel mean, in float32; the window's origin is row y * stride1 and
+    padded column md + x * stride1."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd (correlation_layer1d.cpp)")
+    if f1.shape != f2.shape or f1.dim() != 4:
+        raise ValueError(f"need two equal (N, C, H, W) inputs, got {tuple(f1.shape)} and {tuple(f2.shape)}")
+    n, c, h, w = f1.shape
+    md = max_displacement
+    out_h, out_w, gw = correlation_1d_output_shape(
+        h, w, max_displacement=md, kernel_size=kernel_size, stride1=stride1, stride2=stride2, pad=pad,
+        single_direction=single_direction,
+    )
+    if out_h < 1 or out_w < 1:
+        raise ValueError("correlation window does not fit in input")
+    _, x_shift = _corr1d_geometry(md, stride2, single_direction)
+    f1p = F.pad(f1.float(), (pad, pad))
+    f2p = F.pad(f2.float(), (pad, pad))
+    span_h = (out_h - 1) * stride1 + kernel_size
+    span_w = (out_w - 1) * stride1 + kernel_size
+    a = f1p[:, :, :span_h, md:md + span_w]
+    box = torch.ones(1, 1, kernel_size, kernel_size, dtype=torch.float32, device=f1.device)
+    outs = []
+    for d in range(gw):
+        x0 = md + (d + x_shift) * stride2
+        b = f2p[:, :, :span_h, x0:x0 + span_w]
+        q = (a * b).sum(dim=1) if multiply else (a - b).abs().sum(dim=1)
+        if kernel_size > 1:
+            q = F.conv2d(q[:, None], box)[:, 0]
+        outs.append(q[:, ::stride1, ::stride1])
+    out = torch.stack(outs, dim=1) / (kernel_size * kernel_size * c)
+    return out.to(f1.dtype)
+
+
+def correlation_1d_backward_plain(
+    f1: torch.Tensor, f2: torch.Tensor, grad: torch.Tensor, **kwargs
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch VJP: autograd through :func:`correlation_1d_plain` with
+    the same keyword arguments. f1, f2 (N, C, H, W), grad the cotangent of
+    the output; returns (df1, df2) (N, C, H, W) in the inputs' dtype."""
+    with torch.enable_grad():
+        a = f1.detach().requires_grad_(True)
+        b = f2.detach().requires_grad_(True)
+        out = correlation_1d_plain(a, b, **kwargs)
+        df1, df2 = torch.autograd.grad(out, (a, b), grad.to(out.dtype))
+    return df1, df2
+
+
+def _check_corr1d_inputs(name: str, f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,
+                         stride2: int) -> tuple[int, int, int, int]:
+    """The checks both 1-D wrappers make on f1 and f2 (N, H, W, C); returns the shape."""
+    if f1.device.type != "cuda" or f2.device != f1.device:
+        raise ValueError(f"{name} needs CUDA tensors on one device, got {f1.device} / {f2.device}")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(f"need two equal (N, H, W, C) inputs, got {tuple(f1.shape)} and {tuple(f2.shape)}")
+    if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype:
+        raise TypeError(f"{name}: dtypes {f1.dtype} / {f2.dtype}; need both float32 or both bfloat16")
+    if max_displacement < 0 or stride2 < 1:
+        raise ValueError(f"bad max_displacement={max_displacement} / stride2={stride2}")
+    n, h, w, c = f1.shape
+    if n > 65535 or h > 65535:
+        raise ValueError(f"{name}: N={n} and H={h} must each be <= 65535 (grid limits)")
+    if w * c >= 2**31:
+        raise ValueError(f"{name} takes W*C < 2**31 (32-bit offsets within a row); got W={w}, C={c}")
+    if f1.dtype == torch.bfloat16 and c % 2:
+        raise ValueError(f"{name}: bfloat16 needs an even channel count, got C={c}")
+    if f1.data_ptr() % 4 or f2.data_ptr() % 4:
+        raise ValueError(f"{name}: inputs must start 4-byte aligned (the kernels copy 4 bytes at a time)")
+    if not (f1.is_contiguous() and f2.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous (N, H, W, C)")
+    return n, h, w, c
+
+
+def correlation_1d_cuda(
+    f1: torch.Tensor, f2: torch.Tensor, *, max_displacement: int, stride2: int, single_direction: int
+) -> torch.Tensor:
+    """Launch the 1-D forward kernel (csrc/correlation1d.cu) on the current stream.
+
+    DispNet configuration only (multiply, k=1, stride1=1, pad=max_displacement).
+    Takes f1, f2 (N, H, W, C) channels-last, contiguous, 4-byte aligned,
+    float32 or bfloat16 (then with C even: the kernel copies 4 bytes at a
+    time, 16 where C and the addresses allow), on one CUDA device, with
+    W*C < 2**31; returns (N, gw, H, W) in their dtype. Raises on
+    anything else; a launch plan that does not fit a block (stride2 *
+    ceil(gw / 7) > 256 threads) fails in the launch.
+    """
+    n, h, w, c = _check_corr1d_inputs("correlation_1d_cuda", f1, f2, max_displacement, stride2)
+    gw, _ = _corr1d_geometry(max_displacement, stride2, single_direction)
+    out = torch.empty((n, gw, h, w), dtype=f1.dtype, device=f1.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    status = lib.fn2_correlation_1d(
+        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, h, w, c, max_displacement, stride2,
+        (single_direction > 0) - (single_direction < 0), _build.DTYPE_CODES[f1.dtype],
+        torch.cuda.current_stream(f1.device).cuda_stream,
+    )
+    _build.check_status(status, "correlation_1d")
+    correlation_1d_cuda.launches += 1
+    return out
+
+
+correlation_1d_cuda.launches = 0  # kernel launches since the last reset
+
+
+def correlation_1d_backward_cuda(
+    f1: torch.Tensor, f2: torch.Tensor, grad: torch.Tensor, *, max_displacement: int, stride2: int,
+    single_direction: int, need_f1: bool = True, need_f2: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """Launch the 1-D backward kernel (csrc/correlation1d_bwd.cu) on the current stream.
+
+    DispNet configuration only. Takes f1, f2 (N, H, W, C) channels-last,
+    4-byte aligned, and grad (N, gw, H, W), contiguous, all float32 or all
+    bfloat16 (then with C even), on one CUDA device, with W*C < 2**31; returns (df1, df2) (N, H, W,
+    C) in their dtype, None for a gradient not asked for. Both gradients are
+    one launch. Raises on anything else, and where a column run's g values
+    and f rows do not fit shared memory (gw above about 400 at stride2 1 in float32).
+    """
+    n, h, w, c = _check_corr1d_inputs("correlation_1d_backward_cuda", f1, f2, max_displacement, stride2)
+    if grad.device != f1.device or grad.dtype != f1.dtype:
+        raise TypeError(f"correlation_1d_backward_cuda: grad {grad.dtype} on {grad.device}; "
+                        f"need {f1.dtype} on {f1.device}")
+    gw, _ = _corr1d_geometry(max_displacement, stride2, single_direction)
+    if tuple(grad.shape) != (n, gw, h, w):
+        raise ValueError(f"grad shape {tuple(grad.shape)}, expected {(n, gw, h, w)}")
+    if not grad.is_contiguous():
+        raise ValueError("correlation_1d_backward_cuda: grad must be contiguous")
+    df1 = torch.empty_like(f1) if need_f1 else None
+    df2 = torch.empty_like(f2) if need_f2 else None
+    if not (need_f1 or need_f2) or f1.numel() == 0:
+        return df1, df2
+    lib = _build.library()
+    status = lib.fn2_correlation_1d_backward(
+        f1.data_ptr(), f2.data_ptr(), grad.data_ptr(),
+        df1.data_ptr() if need_f1 else None, df2.data_ptr() if need_f2 else None,
+        n, h, w, c, max_displacement, stride2, (single_direction > 0) - (single_direction < 0),
+        _build.DTYPE_CODES[f1.dtype], torch.cuda.current_stream(f1.device).cuda_stream,
+    )
+    _build.check_status(status, "correlation_1d_backward")
+    correlation_1d_backward_cuda.launches += 1
+    return df1, df2
+
+
+correlation_1d_backward_cuda.launches = 0  # kernel launches since the last reset

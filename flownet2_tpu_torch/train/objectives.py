@@ -7,10 +7,10 @@ flow scaled by 1/DIV_FLOW where the net predicts flow/20.
 A loss is ``loss_fn(net, batch) -> (loss, aux)``: ``net`` the
 ``nn.Module`` it trains (a FlowNet2 for the cascade losses), ``batch`` a dict
 of NHWC tensors on the net's device, img0/img1 (N, H, W, 3) raw 0-255 and
-flow (N, H, W, 2) in pixels. The stage losses run their frozen upstream
-nets under ``torch.no_grad()``; the optimizer is given only the stage's
-sub-net (:func:`trainable_module`), which is the semantics of the JAX
-package's ``make_split_stage_loss``.
+flow (N, H, W, 2) in pixels (for DispNetC, (N, H, W, 1) disparity). The
+stage losses run their frozen upstream nets under ``torch.no_grad()``; the
+optimizer is given only the stage's sub-net (:func:`trainable_module`),
+which is the semantics of the JAX package's ``make_split_stage_loss``.
 """
 
 from __future__ import annotations
@@ -92,6 +92,16 @@ def flownet_sd_loss(net: nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
     x0, x1 = normalize_images(img0, img1)
     # the SD net predicts at 20x the other nets' scale: its target is the raw flow
     total, per_scale = multiscale_l1_loss(net(torch.cat([x0, x1], dim=1)), flow)
+    return total, {"loss": total, **per_scale}
+
+
+def dispnet_c_loss(net: nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Stereo objective: multi-scale L1 on 1-channel disparity (img0 the left
+    frame, img1 the right, flow (N, H, W, 1) the disparity, the DisparityData
+    convention), targets scaled by 1/DIV_FLOW like the flow nets'."""
+    img0, img1, disp = _batch_views(batch)
+    x0, x1 = normalize_images(img0, img1)
+    total, per_scale = multiscale_l1_loss(net(x0, x1), disp / DIV_FLOW)
     return total, {"loss": total, **per_scale}
 
 
@@ -193,6 +203,7 @@ def trainable_module(net: nn.Module, loss_key: str) -> nn.Module:
 LOSSES: dict[str, Callable] = {
     "flownets": flownet_s_loss,
     "flownetc": flownet_c_loss,
+    "dispnetc": dispnet_c_loss,
     "flownet2-sd": flownet_sd_loss,
     "flownet2-s1": make_cascade_stage_loss("flownets_1"),
     "flownet2-s2": make_cascade_stage_loss("flownets_2"),

@@ -25,7 +25,12 @@ instead. It prints:
     python3 scripts/profile_slice.py --head-layers        # K3 per layer at Sintel b4
     python3 scripts/profile_slice.py --corr               # correlation fwd/bwd, K1, K2: device time
     python3 scripts/profile_slice.py --fusion-head-kernel # K4 beside the unfused route: device time
+    python3 scripts/profile_slice.py --dispnet            # DispNetC forward and train step, 960x576 b4
 
+With ``--dispnet`` it profiles DispNetC instead (default 960x576 b4, the
+FlyingThings3D frames adapted): ``FlowRunner("dispnetc").run`` per dtype,
+then one float32 Adam ``Solver.step`` of its loss on seeded images and
+disparity, each with the 1-D correlation kernels' own rows.
 With ``--head-layers`` it runs K3's wrappers on each of its Sintel b4 layer
 shapes (``chip_smoke.HEAD_GEOMETRIES``) and prints, per call, the device
 time of the head kernel, of everything else the wrapper launches (the
@@ -77,6 +82,8 @@ HEAD_PART = "head_conv kernels (K3: conv and deconv; f32 CUDA cores, bf16 tensor
 KERNEL_PARTS = {
     "correlation kernel": ("correlation_kernel",),
     "correlation backward kernel": ("correlation_backward_kernel",),
+    "correlation_1d kernel": ("correlation1d_kernel",),
+    "correlation_1d backward kernel": ("correlation1d_backward_kernel",),
     "flow_warp kernel": ("flow_warp_kernel",),
     "flow_warp backward kernel": ("flow_warp_backward_kernel",),
     HEAD_PART: (
@@ -184,6 +191,32 @@ def profile_train(args, objective: str, dtype: str, dev: torch.device) -> str:
     flow = torch.randn(args.batch, args.height, args.width, 2, generator=torch.Generator().manual_seed(SEED))
     batch = {"img0": i0, "img1": i1, "flow": (4 * flow).to(dev)}
     return profile_run(args, f"train {objective} {dtype}", lambda: solver.step(batch))
+
+
+def profile_dispnet(args, dev: torch.device) -> str:
+    """DispNetC: FlowRunner forwards per dtype, then one float32 Adam step of
+    its loss (seeded images, seeded disparity up to 30 px)."""
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.inference import FlowRunner
+    from flownet2_tpu_torch.models import DispNetC
+    from flownet2_tpu_torch.train import Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import dispnet_c_loss
+
+    params = init_params("dispnetc", seed=SEED)
+    i0, i1 = _images(args, dev)
+    geom = f"{args.width}x{args.height} b{args.batch}"
+    reports = []
+    for dtype in args.dtypes:
+        runner = FlowRunner("dispnetc", params, device=dev, dtype=dtype)
+        reports.append(profile_run(args, f"dispnetc {dtype} {geom}", lambda: runner.run(i0, i1)))
+        del runner
+    with torch.device("meta"):
+        net = DispNetC()
+    solver = Solver(SolverConfig(solver_type="adam"), dispnet_c_loss, load_into(net, params), device=dev)
+    disp = torch.rand(args.batch, args.height, args.width, 1, generator=torch.Generator().manual_seed(SEED))
+    batch = {"img0": i0, "img1": i1, "flow": (-30 * disp).to(dev)}
+    reports.append(profile_run(args, f"train dispnetc float32 {geom}", lambda: solver.step(batch)))
+    return "\n".join(reports + ["registers and spills (nvcc -Xptxas -v):", *kernel_resources("correlation1d")])
 
 
 def _device_us(run, patterns, require: bool = True) -> dict[str, float]:
@@ -399,9 +432,9 @@ def profile_corr(args, dev: torch.device) -> str:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--height", type=int, default=320)
-    p.add_argument("--width", type=int, default=448)
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--height", type=int, default=None, help="default 320; 576 with --dispnet")
+    p.add_argument("--width", type=int, default=None, help="default 448; 960 with --dispnet")
+    p.add_argument("--batch", type=int, default=None, help="default 8; 4 with --dispnet")
     p.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"], choices=["float32", "bfloat16"])
     p.add_argument("--out", default=None, help="directory for the full key_averages tables")
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
@@ -411,14 +444,18 @@ def main(argv=None) -> int:
                    help="K4 and the unfused route it replaces at Sintel b4 and 448x320 b8: device time")
     p.add_argument("--corr", action="store_true",
                    help="the correlation forward and backward at 448x320 b8 and Sintel b4, K1 and K2")
+    p.add_argument("--dispnet", action="store_true", help="DispNetC's forward and train step (960x576 b4)")
     args = p.parse_args(argv)
+    defaults = (576, 960, 4) if args.dispnet else (320, 448, 8)
+    args.height, args.width, args.batch = (v or d for v, d in zip((args.height, args.width, args.batch), defaults))
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false; this needs a CUDA card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"FlowNet2 {args.width}x{args.height} b{args.batch}, torch {torch.__version__}, "
+    net = "DispNetC" if args.dispnet else "FlowNet2"
+    print(f"{net} {args.width}x{args.height} b{args.batch}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {smi}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -429,6 +466,8 @@ def main(argv=None) -> int:
         print(profile_fusion_head(args, dev))
     elif args.corr:
         print(profile_corr(args, dev))
+    elif args.dispnet:
+        print(profile_dispnet(args, dev))
     elif args.train:
         for dtype in args.dtypes:
             print(profile_train(args, "flownetc", dtype, dev))

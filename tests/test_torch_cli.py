@@ -11,11 +11,13 @@ import torch
 
 from flownet2_tpu.checkpoint import save_params
 from flownet2_tpu.cli.run_flownet import main as jax_main
+from flownet2_tpu.cli.run_flownet_many import main as jax_many_main
 from flownet2_tpu.core import adapt as jax_adapt
 from flownet2_tpu.core import flow_io as jax_flow_io
 from flownet2_tpu.core.flow_io import read_flo, write_ppm
 from flownet2_tpu_torch.checkpoint import init_params
 from flownet2_tpu_torch.cli.run_flownet import main, resolve_model_name
+from flownet2_tpu_torch.cli.run_flownet_many import main as many_main
 from flownet2_tpu_torch.core import adapt, flow_io
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
@@ -46,6 +48,48 @@ def test_both_clis_agree_on_one_npz(tmp_path, pair):
     a, b = read_flo(out_jax), read_flo(out_torch)
     assert a.shape == b.shape == (70, 90, 2)
     assert float(np.sqrt(((a - b) ** 2).sum(-1)).mean()) <= 1e-3
+
+
+def _epe(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
+
+
+def test_both_clis_agree_on_dispnetc(tmp_path, pair):
+    """dispnetc through both run_flownet CLIs on one .npz: the .flo files
+    (the disparity scaled per axis into both channels) agree to mean EPE
+    <= 1e-3 px, float32 on both sides."""
+    npz = str(tmp_path / "w.npz")
+    save_params(npz, init_params("dispnetc", seed=5))
+    out_jax, out_torch = str(tmp_path / "jax.flo"), str(tmp_path / "torch.flo")
+    assert jax_main([npz, "dispnetc", *pair, out_jax]) == 0
+    assert main([npz, "dispnetc", *pair, out_torch, "--device", "cpu"]) == 0
+    a, b = read_flo(out_jax), read_flo(out_torch)
+    assert a.shape == b.shape == (70, 90, 2)
+    assert _epe(a, b) <= 1e-3
+
+
+def test_run_flownet_many_agrees_with_jax_on_dispnetc(tmp_path):
+    """dispnetc through both run_flownet_many CLIs over two jobs of different
+    sizes (70x90, 100x130) on one .npz: every .flo agrees to mean EPE <= 1e-3 px."""
+    rng = np.random.default_rng(14)
+    sizes = [(70, 90), (100, 130)]
+    lines = {"jax": [], "torch": []}
+    for j, hw in enumerate(sizes):
+        imgs = [str(tmp_path / f"job{j}_img{i}.ppm") for i in range(2)]
+        for p in imgs:
+            write_ppm(p, rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+        for side in lines:
+            lines[side].append(f"{imgs[0]} {imgs[1]} {tmp_path / f'{side}{j}.flo'}")
+    for side, ls in lines.items():
+        (tmp_path / f"{side}.txt").write_text("\n".join(ls) + "\n")
+    npz = str(tmp_path / "w.npz")
+    save_params(npz, init_params("dispnetc", seed=6))
+    assert jax_many_main([npz, "dispnetc", str(tmp_path / "jax.txt")]) == 0
+    assert many_main([npz, "dispnetc", str(tmp_path / "torch.txt"), "--device", "cpu"]) == 0
+    for j, hw in enumerate(sizes):
+        a, b = read_flo(tmp_path / f"jax{j}.flo"), read_flo(tmp_path / f"torch{j}.flo")
+        assert a.shape == b.shape == (*hw, 2)
+        assert _epe(a, b) <= 1e-3
 
 
 _NO_JAX = """
@@ -97,11 +141,20 @@ def test_cli_without_card_refuses_to_fall_back(monkeypatch, tmp_path, pair):
 
 @pytest.mark.parametrize(
     "argv_model,message",
-    [("dispnetc", "1-D correlation"), ("FlowNet3_deploy.prototxt", "cannot infer model")],
+    [("dispnetc", None), ("FlowNet3_deploy.prototxt", "cannot infer model")],
+    ids=["dispnetc", "FlowNet3_deploy.prototxt-cannot infer model"],
 )
 def test_cli_rejects_unported_and_unknown_models(tmp_path, pair, argv_model, message):
+    """An unknown model exits with a message. dispnetc, refused until the
+    port had the 1-D correlation, now runs: a finite (70, 90, 2) .flo."""
+    out = str(tmp_path / "out.flo")
+    if message is None:
+        assert main(["random", argv_model, *pair, out, "--device", "cpu"]) == 0
+        flow = read_flo(out)
+        assert flow.shape == (70, 90, 2) and np.isfinite(flow).all()
+        return
     with pytest.raises(SystemExit, match=message):
-        main(["random", argv_model, *pair, str(tmp_path / "out.flo"), "--device", "cpu"])
+        main(["random", argv_model, *pair, out, "--device", "cpu"])
 
 
 def test_cli_refuses_caffemodel_with_hint(tmp_path, pair):

@@ -14,9 +14,14 @@ import torch
 
 from flownet2_tpu_torch.checkpoint import init_params, load_into
 from flownet2_tpu_torch.inference import FlowRunner
-from flownet2_tpu_torch.models import FlowNet2
+from flownet2_tpu_torch.models import DispNetC, FlowNet2
 from flownet2_tpu_torch.ops.correlation import (
     correlation,
+    correlation_1d,
+    correlation_1d_backward_cuda,
+    correlation_1d_backward_plain,
+    correlation_1d_cuda,
+    correlation_1d_plain,
     correlation_backward_cuda,
     correlation_backward_plain,
     correlation_cuda,
@@ -738,3 +743,193 @@ def test_flownet2_wide_bf16_on_card_uses_head_kernels(cuda, fused):
     got = runner.batch(i0, i1)
     assert (head_launches() - k3, fusion_head_cuda.launches - k4) == ((8, 1) if fused else (12, 0))
     assert got.shape == (2, 64, 576, 2) and np.isfinite(got).all()
+
+
+# -- the 1-D (stereo) correlation ------------------------------------------------
+
+# C, H, W, max_displacement, stride2, single_direction. Column tiles: the
+# forward's are at most 128 columns a plane in float32 and 84 in bfloat16 at
+# DispNet's gw 41, the backward's 64 columns a plane; W below (33, 57, 70, 100),
+# at (64, 84, 128) and above (130, 240, 300) them, and W < md (33 at md 40).
+CORR1D_CASES = [
+    (128, 3, 240, 40, 1, -1), (128, 2, 128, 40, 1, -1), (64, 3, 84, 40, 1, -1), (64, 3, 33, 40, 1, -1),
+    (100, 4, 100, 40, 1, 0), (99, 3, 57, 4, 1, 1), (32, 3, 70, 40, 2, -1), (20, 2, 130, 20, 2, 1),
+    (8, 2, 300, 4, 2, 0), (256, 2, 64, 40, 1, 1),
+]
+CORR1D_DTYPE_CASES = [
+    (*case, dtype, rel) for case in CORR1D_CASES for dtype, rel in DTYPE_TOLS
+    if case[0] % 2 == 0 or dtype == torch.float32
+]
+
+
+def _corr1d_kw(md, s2, sd):
+    return dict(max_displacement=md, kernel_size=1, stride1=1, stride2=s2, pad=md, single_direction=sd)
+
+
+def _corr1d_inputs(device, dtype, n, c, h, w, md, s2, sd, seed):
+    """f1, f2 (N, C, H, W) and a cotangent (N, gw, H, W), seeded."""
+    g0 = torch.Generator().manual_seed(seed)
+    gw = md // s2 + 1 if sd else 2 * (md // s2) + 1
+    f1, f2 = (torch.randn(n, c, h, w, generator=g0).to(device, dtype) for _ in range(2))
+    return f1, f2, torch.randn(n, gw, h, w, generator=g0).to(device, dtype)
+
+
+@pytest.mark.parametrize("c,h,w,md,s2,sd,dtype,rel", CORR1D_DTYPE_CASES)
+def test_correlation_1d_kernel_matches_plain(cuda, c, h, w, md, s2, sd, dtype, rel):
+    """The 1-D forward through correlation_1d (one launch) against
+    correlation_1d_plain on the card, every single_direction, stride2 1 and
+    2, channel counts that are not a multiple of the 16 (f32) or 32 (bf16)
+    channel chunks and take the 4-byte copies (99 f32, 100 and 20 bf16): f32
+    within 1e-5 * max|ref| (sums in another order), bf16 within 2e-2 *
+    max|ref| (one bf16 rounding of the output)."""
+    f1, f2, _ = _corr1d_inputs(cuda, dtype, 2, c, h, w, md, s2, sd, seed=c + w + md)
+    kw = _corr1d_kw(md, s2, sd)
+    before = correlation_1d_cuda.launches
+    got = correlation_1d(f1, f2, **kw)
+    torch.cuda.synchronize()
+    assert correlation_1d_cuda.launches == before + 1
+    ref = correlation_1d_plain(f1, f2, **kw)
+    assert got.shape == ref.shape and got.dtype == dtype
+    _rel_close(got, ref, rel)
+
+
+@pytest.mark.parametrize("c,h,w,md,s2,sd,dtype,rel", CORR1D_DTYPE_CASES)
+def test_correlation_1d_backward_kernel_matches_plain(cuda, c, h, w, md, s2, sd, dtype, rel):
+    """Gradients through correlation_1d on the card (one launch of the
+    backward kernel for df1 and df2) against correlation_1d_backward_plain,
+    on the forward's cases and tolerances (channel counts that are not a
+    multiple of the 64-channel runs: 100, 99, 20, 8)."""
+    f1, f2, grad = _corr1d_inputs(cuda, dtype, 2, c, h, w, md, s2, sd, seed=c + w + md + 1)
+    kw = _corr1d_kw(md, s2, sd)
+    a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
+    before = correlation_1d_backward_cuda.launches
+    got = torch.autograd.grad(correlation_1d(a, b, **kw), (a, b), grad)
+    torch.cuda.synchronize()
+    assert correlation_1d_backward_cuda.launches == before + 1
+    ref = correlation_1d_backward_plain(f1, f2, grad, **kw)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape == (2, c, h, w) and x.dtype == dtype
+        _rel_close(x, y, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("need", ["f1", "f2"])
+def test_correlation_1d_backward_kernel_one_sided(cuda, need, dtype):
+    """need_f1 only or need_f2 only: one launch, the other gradient None, and
+    the one asked for equal to the same gradient of the two-sided call."""
+    f1, f2, grad = _corr1d_inputs(cuda, dtype, 2, 128, 3, 100, 40, 1, -1, seed=9)
+    nhwc = (lambda t: t.permute(0, 2, 3, 1).contiguous())
+    kw = dict(max_displacement=40, stride2=1, single_direction=-1)
+    both = correlation_1d_backward_cuda(nhwc(f1), nhwc(f2), grad, **kw)
+    before = correlation_1d_backward_cuda.launches
+    got = correlation_1d_backward_cuda(nhwc(f1), nhwc(f2), grad, **kw, need_f1=need == "f1", need_f2=need == "f2")
+    torch.cuda.synchronize()
+    assert correlation_1d_backward_cuda.launches == before + 1
+    k = 0 if need == "f1" else 1
+    assert got[1 - k] is None
+    assert torch.equal(got[k], both[k])
+    _rel_close(got[k], nhwc(correlation_1d_backward_plain(f1, f2, grad, **_corr1d_kw(40, 1, -1))[k]),
+               1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_correlation_1d_kernels_at_a_storage_offset(cuda):
+    """float32 inputs that start one element into their allocation: not
+    16-byte aligned, so the kernels take their 4-byte copies; within 1e-5 *
+    max|ref| of the plain versions."""
+    g0 = torch.Generator().manual_seed(10)
+    buf = torch.randn(3 * 2 * 40 * 64 + 1, generator=g0).to(cuda)
+    f1 = buf[1:1 + 2 * 40 * 64].view(1, 2, 40, 64)  # (N, H, W, C), odd element offset
+    f2 = buf[1 + 2 * 40 * 64:1 + 4 * 40 * 64].view(1, 2, 40, 64)
+    grad = torch.randn(1, 41, 2, 40, generator=g0).to(cuda)
+    kw = dict(max_displacement=40, stride2=1, single_direction=-1)
+    out = correlation_1d_cuda(f1, f2, **kw)
+    df1, df2 = correlation_1d_backward_cuda(f1, f2, grad, **kw)
+    torch.cuda.synchronize()
+    nchw = (lambda t: t.permute(0, 3, 1, 2))
+    _rel_close(out, correlation_1d_plain(nchw(f1), nchw(f2), **_corr1d_kw(40, 1, -1)), 1e-5)
+    ref1, ref2 = correlation_1d_backward_plain(nchw(f1), nchw(f2), grad, **_corr1d_kw(40, 1, -1))
+    _rel_close(df1, ref1.permute(0, 2, 3, 1), 1e-5)
+    _rel_close(df2, ref2.permute(0, 2, 3, 1), 1e-5)
+
+
+def test_correlation_1d_wrappers_raise_on_what_they_do_not_take(cuda):
+    before = correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches
+    f = torch.zeros(1, 8, 6, 50, device=cuda)
+    for kw in (dict(kernel_size=3), dict(stride1=2), dict(multiply=False)):
+        with pytest.raises(NotImplementedError):
+            correlation_1d(f, f, max_displacement=4, pad=4, **kw)
+    with pytest.raises(NotImplementedError):
+        correlation_1d(f, f, max_displacement=4, pad=2)
+    with pytest.raises(TypeError):
+        correlation_1d(f.half(), f.half(), max_displacement=4, pad=4)
+    kw = dict(max_displacement=4, stride2=1, single_direction=-1)
+    odd = torch.zeros(1, 6, 9, 9, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="even"):
+        correlation_1d_cuda(odd, odd, **kw)
+    with pytest.raises(ValueError, match="even"):
+        correlation_1d_backward_cuda(odd, odd, torch.zeros(1, 5, 6, 9, device=cuda, dtype=torch.bfloat16), **kw)
+    shifted = torch.zeros(1 + 6 * 9 * 8, device=cuda, dtype=torch.bfloat16)[1:].view(1, 6, 9, 8)
+    with pytest.raises(ValueError, match="4-byte"):
+        correlation_1d_cuda(shifted, shifted, **kw)
+    nhwc = torch.zeros(1, 6, 9, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation_1d_cuda(nhwc.transpose(1, 2).contiguous().transpose(1, 2), nhwc, **kw)
+    with pytest.raises(ValueError, match="grad shape"):
+        correlation_1d_backward_cuda(nhwc, nhwc, torch.zeros(1, 9, 6, 9, device=cuda), **kw)
+    with pytest.raises(TypeError):
+        correlation_1d_backward_cuda(nhwc, nhwc, torch.zeros(1, 5, 6, 9, device=cuda, dtype=torch.bfloat16), **kw)
+    wide = torch.zeros(1, 1, 1, 1, device=cuda).expand(1, 1, 2**16, 2**15)  # W*C = 2**31: 32-bit row offsets
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        correlation_1d_cuda(wide, wide, **kw)
+    assert (correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches) == before
+
+
+def test_dispnetc_on_card_launches_the_1d_kernel_once_and_matches_cpu(cuda, no_tf32):
+    """One float32 DispNetC FlowRunner batch on the card launches the 1-D
+    forward once and no other kernel, and matches the same port on the CPU
+    to mean EPE <= 1e-2 px (both output channels)."""
+    params = init_params("dispnetc", seed=0)
+    rng = np.random.default_rng(1)
+    i0, i1 = (rng.uniform(0, 255, (2, 70, 130, 3)).astype(np.float32) for _ in range(2))
+    runner = FlowRunner("dispnetc", params, device=cuda)
+    others = (flow_warp_cuda, correlation_cuda, head_conv2d_cuda, head_deconv2d_cuda, fusion_head_cuda)
+    before = correlation_1d_cuda.launches, [k.launches for k in others]
+    got = runner.batch(i0, i1)
+    assert correlation_1d_cuda.launches - before[0] == 1
+    assert [k.launches for k in others] == before[1]
+    ref = FlowRunner("dispnetc", params, device="cpu").batch(i0, i1)
+    assert got.shape == ref.shape == (2, 70, 130, 2)
+    assert float(np.sqrt(((got - ref) ** 2).sum(-1)).mean()) <= 1e-2
+
+
+def test_dispnetc_train_step_on_card_matches_cpu(cuda):
+    """One float32 DispNetC loss and gradient on the card (TF32 off, cuDNN's
+    deterministic algorithms) against the port on the CPU: one launch each
+    of the 1-D forward and backward; loss rtol 1e-4, the gradients' relative
+    L2 over all tensors and of the median tensor <= 1e-3."""
+    flat = init_params("dispnetc", seed=3)
+    batch = _smooth_batch(n=2, seed=14)
+    batch["flow"] = np.ascontiguousarray(batch["flow"][..., :1])
+
+    def loss_and_grads(device):
+        with torch.device("meta"):
+            net = DispNetC()
+        net = load_into(net, flat).to(device)
+        loss, _ = objectives.LOSSES["dispnetc"](net, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        loss.backward()
+        return loss.item(), {k: p.grad.cpu() for k, p in net.named_parameters()}
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    cudnn.deterministic = True
+    try:
+        before = correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches
+        loss, grads = loss_and_grads(cuda)
+        assert (correlation_1d_cuda.launches - before[0], correlation_1d_backward_cuda.launches - before[1]) == (1, 1)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = flags
+    ref_loss, ref_grads = loss_and_grads("cpu")
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+    whole, median = _grad_errors(grads, ref_grads)
+    assert whole <= 1e-3 and median <= 1e-3, f"relative L2 of all {whole:.3g}, median {median:.3g}"

@@ -14,9 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from flownet2_tpu.checkpoint import flatten_params as jax_flatten_params
+from flownet2_tpu.checkpoint import load_params as jax_load_params
+from flownet2_tpu.checkpoint import save_params as jax_save_params
 from flownet2_tpu.checkpoint import unflatten_params
 from flownet2_tpu.inference import FlowRunner as JaxFlowRunner
 from flownet2_tpu.models import (
+    dispnet_c_apply as jax_dispnet_c_apply,
+    dispnet_c_init as jax_dispnet_c_init,
     flownet2_apply as jax_flownet2_apply,
     flownet2_cs_apply as jax_flownet2_cs_apply,
     flownet2_css_apply as jax_flownet2_css_apply,
@@ -26,10 +31,18 @@ from flownet2_tpu.models import (
     fusion_apply as jax_fusion_apply,
     normalize_images as jax_normalize_images,
 )
-from flownet2_tpu_torch.checkpoint import init_params, load_into
+from flownet2_tpu_torch.checkpoint import (
+    init_params,
+    load_into,
+    load_params,
+    params_from_state_dict,
+    state_dict_from_params,
+)
 from flownet2_tpu_torch.inference import FlowRunner
 from flownet2_tpu_torch.models import (
+    DispNetC,
     FlowNet2,
+    dispnet_c_apply,
     flownet2_apply,
     flownet2_cs_apply,
     flownet2_css_apply,
@@ -149,10 +162,58 @@ def test_flownet2_cs_css_match_jax(weights, images, apply, jax_apply):
     assert _epe(apply(net, _t(i0), _t(i1)).numpy(), ref) <= 1e-3
 
 
-@pytest.mark.parametrize("model", ["flownetc", "flownet2-sd", "flownet2"])
+@pytest.fixture(scope="module")
+def dispnet_weights(tmp_path_factory):
+    """The JAX package's own DispNetC weights (dispnet_c_init), carried
+    through the .npz bridge: written by the JAX checkpoint, read by the port's."""
+    path = tmp_path_factory.mktemp("dispnet") / "dispnetc.npz"
+    jax_save_params(str(path), jax_dispnet_c_init(jax.random.PRNGKey(0)))
+    return load_params(path)
+
+
+@torch.no_grad()
+def test_dispnet_c_matches_jax(dispnet_weights):
+    """DispNetC against dispnet_c_apply on the same weights and normalized
+    inputs, every scale flow6..flow2 (1-channel disparity): atol 1e-4."""
+    flat = dispnet_weights
+    with torch.device("meta"):
+        net = DispNetC()
+    load_into(net, flat).eval()
+    rng = np.random.default_rng(8)
+    x0, x1 = (rng.standard_normal((1, H, W, 3)).astype(np.float32) for _ in range(2))
+    ref = jax.jit(jax_dispnet_c_apply)(unflatten_params(flat), jnp.asarray(x0), jnp.asarray(x1))
+    got = dispnet_c_apply(net, _t(x0), _t(x1))
+    _close_flows(got, ref)
+    assert got["flow2"].shape == (1, H // 4, W // 4, 1) and got["flow6"].shape == (1, H // 64, W // 64, 1)
+
+
+def test_dispnetc_weight_bridge_round_trips(tmp_path, dispnet_weights):
+    """The JAX DispNetC weights load into the port's net with every key
+    matched (strict), come back unchanged through params_from_state_dict,
+    and the port's init_params('dispnetc') has the JAX package's keys and
+    shapes; the port's weights written as .npz load in the JAX package."""
+    flat = dispnet_weights
+    with torch.device("meta"):
+        net = DispNetC()
+    load_into(net, flat)
+    back = params_from_state_dict(net.state_dict())
+    assert back.keys() == flat.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    mine = init_params("dispnetc", seed=1)
+    assert {k: v.shape for k, v in mine.items()} == {k: v.shape for k, v in flat.items()}
+    assert state_dict_from_params(mine).keys() == net.state_dict().keys()
+    jax_save_params(str(tmp_path / "mine.npz"), mine)
+    reread = jax_flatten_params(jax_load_params(str(tmp_path / "mine.npz")))
+    assert all(np.array_equal(np.asarray(reread[k]), mine[k]) for k in mine)
+
+
+@pytest.mark.parametrize("model", ["flownetc", "flownet2-sd", "flownet2", "dispnetc"])
 def test_flow_runner_matches_jax_at_non_divisible_size(model):
     """100x150 adapts to 128x192 and back, with the per-axis rescale:
-    mean EPE <= 1e-3 px."""
+    mean EPE <= 1e-3 px. dispnetc's 1-channel disparity comes back in both
+    channels, scaled by the width's and the height's factor, as the JAX
+    runner returns it; the EPE covers both."""
     flat = init_params(model, seed=4)
     rng = np.random.default_rng(5)
     i0, i1 = (rng.uniform(0, 255, (2, 100, 150, 3)).astype(np.float32) for _ in range(2))
@@ -177,8 +238,13 @@ def test_flow_runner_bfloat16_runs(weights):
 
 
 def test_flow_runner_rejects_dispnetc_and_unknown():
-    with pytest.raises(NotImplementedError, match="1-D correlation"):
-        FlowRunner("dispnetc", {}, device="cpu")
+    """dispnetc, refused until the port had the 1-D correlation, now builds
+    and runs: a (H, W, 2) float32 flow, finite. Unknown models, dtypes other
+    than float32 and bfloat16, and a missing device are still refused."""
+    rng = np.random.default_rng(9)
+    i0, i1 = (rng.uniform(0, 255, (40, 70, 3)).astype(np.float32) for _ in range(2))
+    flow = FlowRunner("dispnetc", init_params("dispnetc"), device="cpu")(i0, i1)
+    assert flow.shape == (40, 70, 2) and flow.dtype == np.float32 and np.isfinite(flow).all()
     with pytest.raises(ValueError):
         FlowRunner("flownet3", {}, device="cpu")
     with pytest.raises(ValueError):

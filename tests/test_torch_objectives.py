@@ -2,8 +2,9 @@
 trainable parameter's gradient, on the CPU.
 
 One set of seeded random FlowNet2 weights (the port's ``init_params``)
-goes to both packages; the batch is numpy from a seed, with NaN ground-truth
-pixels. JAX takes its exact CPU routes (the gather warp, and
+goes to both packages (DispNetC's objective: its own seeded weights, and
+the batch's first flow channel as the disparity); the batch is numpy from a
+seed, with NaN ground-truth pixels. JAX takes its exact CPU routes (the gather warp, and
 ``correlation_auto``'s custom VJP). Loss: rtol 1e-4. Gradients: the
 relative L2 error of each tensor <= 1e-3, since XLA and PyTorch sum 20+
 layers of convolutions in different orders.
@@ -35,7 +36,7 @@ import torch
 from flownet2_tpu.checkpoint import flatten_params, unflatten_params
 from flownet2_tpu.train import objectives as jax_objectives
 from flownet2_tpu_torch.checkpoint import init_params, load_into, params_from_state_dict
-from flownet2_tpu_torch.models import FlowNet2
+from flownet2_tpu_torch.models import DispNetC, FlowNet2
 from flownet2_tpu_torch.train import objectives
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
@@ -86,7 +87,7 @@ def _port_grads(flat, batch, loss_key):
     """Loss and JAX-layout gradients of the port's objective (net trained
     as the Solver trains it: only the stage's sub-net needs gradients)."""
     with torch.device("meta"):
-        net = FlowNet2()
+        net = DispNetC() if loss_key == "dispnetc" else FlowNet2()
     load_into(net, flat)
     loss_fn = objectives.flownet2_loss if loss_key == "joint" else objectives.LOSSES[loss_key]
     sub = net if loss_key == "joint" else objectives.trainable_module(net, loss_key)
@@ -101,10 +102,13 @@ def _port_grads(flat, batch, loss_key):
     return loss.item(), params_from_state_dict(grads)
 
 
-@pytest.mark.parametrize("loss_key", ["flownetc", "flownet2-s1", "flownet2-fusion", "joint"])
+@pytest.mark.parametrize("loss_key", ["flownetc", "flownet2-s1", "flownet2-fusion", "joint", "dispnetc"])
 def test_objective_loss_and_gradients_match_jax(flat, batch, loss_key):
     if loss_key == "flownetc":  # the C-stage loss on the FlowNet2 net: FlowNetC's loss
         loss_key = "flownet2-c-stage"
+    if loss_key == "dispnetc":  # DispNetC's own weights; the batch's disparity is one flow channel
+        flat = init_params("dispnetc", seed=3)
+        batch = {**batch, "flow": np.ascontiguousarray(batch["flow"][..., :1])}
     ref_loss, ref_grads = _jax_grads(flat, batch, loss_key)
     loss, grads = _port_grads(flat, batch, loss_key)
     assert np.isfinite(loss)

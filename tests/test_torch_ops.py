@@ -17,7 +17,8 @@ from flownet2_tpu.ops.activations import leaky_relu as jax_leaky_relu
 from flownet2_tpu.ops.channel_norm import channel_norm as jax_channel_norm
 from flownet2_tpu.ops.conv import conv2d as jax_conv2d
 from flownet2_tpu.ops.conv import deconv2d_ps as jax_deconv2d_ps
-from flownet2_tpu.ops.correlation import correlation_auto
+from flownet2_tpu.ops.correlation import correlation_1d as jax_correlation_1d
+from flownet2_tpu.ops.correlation import correlation_1d_auto, correlation_auto
 from flownet2_tpu.ops.pallas.warp import flow_warp_pallas
 from flownet2_tpu.ops.resample import resample as jax_resample
 from flownet2_tpu.ops.warp import flow_warp_gather
@@ -27,6 +28,12 @@ from flownet2_tpu_torch.ops.activations import leaky_relu
 from flownet2_tpu_torch.ops.channel_norm import channel_norm
 from flownet2_tpu_torch.ops.correlation import (
     correlation,
+    correlation_1d,
+    correlation_1d_backward_cuda,
+    correlation_1d_backward_plain,
+    correlation_1d_cuda,
+    correlation_1d_output_shape,
+    correlation_1d_plain,
     correlation_backward_cuda,
     correlation_backward_plain,
     correlation_plain,
@@ -297,6 +304,102 @@ def test_correlation_flownetc_channels_and_dtype(rng):
 def test_correlation_rejects_even_kernel():
     with pytest.raises(ValueError):
         correlation(torch.zeros(1, 4, 8, 8), torch.zeros(1, 4, 8, 8), max_displacement=1, kernel_size=2)
+
+
+# -- 1-D (stereo) correlation ---------------------------------------------------
+
+
+def _corr1d_inputs(rng, shape=(2, 5, 13, 6)):
+    """Two NHWC feature maps; the default is 13 wide, narrower than DispNet's
+    md 40, so most displacements leave the map."""
+    return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+
+
+@pytest.mark.parametrize("md", [4, 40])
+@pytest.mark.parametrize("stride2", [1, 2])
+@pytest.mark.parametrize("single_direction", [-1, 0, 1])
+def test_correlation_1d_plain_matches_jax_fast_and_general(rng, single_direction, stride2, md):
+    """DispNet's configuration (multiply, k 1, stride1 1, pad == md) on a
+    13-wide map: correlation_1d_plain against correlation_1d_auto's fast
+    path (the banded matmul) and against the general scan correlation_1d,
+    atol 1e-5 of max|ref| (float32 channel sums in another order)."""
+    kw = dict(max_displacement=md, kernel_size=1, stride1=1, stride2=stride2, pad=md,
+              single_direction=single_direction)
+    f1, f2 = _corr1d_inputs(rng)
+    got = nhwc(correlation_1d(nchw(f1), nchw(f2), **kw))
+    gw = (md // stride2) + 1 if single_direction else 2 * (md // stride2) + 1
+    for jax_fn in (correlation_1d_auto, jax_correlation_1d):
+        ref = np.asarray(jax_fn(jnp.asarray(f1), jnp.asarray(f2), **kw))
+        assert got.shape == ref.shape == (2, 5, 13, gw)
+        np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
+CORR1D_GENERAL_CASES = {
+    "k3-stride1-2": dict(max_displacement=4, kernel_size=3, stride1=2, stride2=1, pad=4, single_direction=0),
+    "subtract": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=2, pad=2, single_direction=-1,
+                     multiply=False),
+    "k3-no-pad-right": dict(max_displacement=3, kernel_size=3, stride1=2, stride2=1, pad=0, single_direction=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CORR1D_GENERAL_CASES))
+def test_correlation_1d_plain_matches_jax_general_path(rng, case):
+    """Configurations only the general scan takes (k 3 with stride1 2,
+    subtract mode, no padding): correlation_1d_plain against
+    correlation_1d_auto (which routes them to correlation_1d), atol 1e-5 of
+    max|ref|; the output shape is correlation_1d_output_shape's."""
+    kw = CORR1D_GENERAL_CASES[case]
+    f1, f2 = _corr1d_inputs(rng, (2, 9, 17, 6))
+    got = nhwc(correlation_1d_plain(nchw(f1), nchw(f2), **kw))
+    ref = np.asarray(correlation_1d_auto(jnp.asarray(f1), jnp.asarray(f2), **kw))
+    out_h, out_w, gw = correlation_1d_output_shape(9, 17, **{k: v for k, v in kw.items() if k != "multiply"})
+    assert got.shape == ref.shape == (2, out_h, out_w, gw)
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("single_direction,stride2,md,shape", [
+    (-1, 1, 40, (2, 5, 13, 8)), (0, 2, 4, (2, 5, 13, 8)), (1, 1, 4, (1, 3, 19, 6)), (-1, 2, 4, (1, 3, 19, 6)),
+], ids=["dispnet", "both-sides-stride2", "right", "left-stride2"])
+def test_correlation_1d_backward_matches_jax_vjp(rng, single_direction, stride2, md, shape):
+    """df1 and df2 against jax.vjp of correlation_1d_auto (its hand-written
+    VJP, _corr1d_selmm_bwd), through autograd and through
+    correlation_1d_backward_plain: atol 1e-5 of max|ref|."""
+    kw = dict(max_displacement=md, kernel_size=1, stride1=1, stride2=stride2, pad=md,
+              single_direction=single_direction)
+    f1, f2 = _corr1d_inputs(rng, shape)
+    out, vjp = jax.vjp(lambda a, b: correlation_1d_auto(a, b, **kw), jnp.asarray(f1), jnp.asarray(f2))
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    ref1, ref2 = (np.asarray(v) for v in vjp(jnp.asarray(g)))
+    a, b = nchw(f1).requires_grad_(True), nchw(f2).requires_grad_(True)
+    got1, got2 = torch.autograd.grad(correlation_1d(a, b, **kw), (a, b), nchw(g))
+    plain1, plain2 = correlation_1d_backward_plain(nchw(f1), nchw(f2), nchw(g), **kw)
+    for got, ref in ((got1, ref1), (got2, ref2), (plain1, ref1), (plain2, ref2)):
+        np.testing.assert_allclose(nhwc(got), ref, atol=1e-5 * np.abs(ref).max())
+
+
+def test_correlation_1d_dispnet_channels_and_dtype(rng):
+    """bfloat16 in, bfloat16 out; with single_direction -1 the last of the
+    41 channels is the zero displacement: f with itself gives the channel
+    mean square there, and channel 0 (40 columns left) is 0 in the first 40
+    columns, where the partner lies in the padding."""
+    f = torch.from_numpy(rng.standard_normal((1, 8, 3, 50)).astype(np.float32)).bfloat16()
+    out = correlation_1d_plain(f, f, max_displacement=40, pad=40, single_direction=-1)
+    assert out.shape == (1, 41, 3, 50) and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out[:, 40].float().numpy(), (f.float() ** 2).mean(dim=1).numpy(), rtol=1e-2)
+    assert not out[:, 0, :, :40].any()
+    with pytest.raises(ValueError):
+        correlation_1d(f, f, max_displacement=1, kernel_size=2)
+
+
+def test_correlation_1d_cuda_wrappers_refuse_cpu_tensors():
+    before = correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches
+    f = torch.zeros(1, 4, 4, 8)
+    kw = dict(max_displacement=2, stride2=1, single_direction=-1)
+    with pytest.raises(ValueError, match="CUDA"):
+        correlation_1d_cuda(f, f, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        correlation_1d_backward_cuda(f, f, torch.zeros(1, 3, 4, 4), **kw)
+    assert (correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches) == before
 
 
 # -- Resample, channel norm, leaky ReLU --------------------------------------

@@ -457,6 +457,7 @@ def test_train_cli_runs_snapshots_and_resumes(tmp_path, capsys):
     (["--no-augment", "--write-augmented", "x"], "--write-augmented"),
     (["--no-augment", "--steps-per-dispatch", "4"], "--steps-per-dispatch"),
     (["--no-augment", "--device", "cpu", "--loss", "flownet2-s1"], "does not train"),
+    (["--no-augment", "--device", "cpu", "--model", "dispnetc"], "disparity"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, message):
     with pytest.raises(SystemExit, match=message):
