@@ -11,7 +11,9 @@ the nearest library call, grid_sample; the head convs, K3, at Sintel size
 448x320 b8 in both types, beside the unfused route it replaces; the 1-D
 (stereo) correlation forward and backward at DispNetC's FlyingThings3D
 features 4x128x144x240 and KITTI's 1x128x96x320, every single_direction and
-stride2 1 and 2), then drives the port's paths with seeded random weights:
+stride2 1 and 2, on NCHW maps, and on bfloat16 maps at an odd storage
+offset; the 2-D and 1-D correlations in the configurations no kernel takes,
+card against CPU), then drives the port's paths with seeded random weights:
 
 - inference at 448x320 b8: FlowNet2 through ``FlowRunner`` (float32 and
   bfloat16) and the ``run_flownet`` CLI, checked against the same port on
@@ -537,14 +539,14 @@ def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
     both gradients at KITTI's 1x128x96x320 for every single_direction and
     stride2 1 and 2, both dtypes, DispNet's configuration timed. The JSON
     entries' plain keys are float32 at 4x128x144x240, ``*_bf16`` bfloat16
-    there, ``kitti_*`` float32 at 1x128x96x320."""
+    there, ``kitti_*`` float32 at 1x128x96x320. Both kernels take the nets'
+    NCHW maps as they are. Then bfloat16 maps at an odd storage offset and
+    an odd width (:func:`corr1d_offset_case`) and the configurations no
+    kernel takes (:func:`general_correlations`)."""
     from flownet2_tpu_torch.ops.correlation import (
         correlation_1d, correlation_1d_backward_cuda, correlation_1d_backward_plain, correlation_1d_cuda,
         correlation_1d_plain,
     )
-
-    def nhwc(t):
-        return t.permute(0, 2, 3, 1).contiguous()
 
     wrap_kw = dict(max_displacement=40, stride2=1, single_direction=-1)
     fwd = dict(name="correlation_1d", route="cuda", source="flownet2_tpu_torch/csrc/correlation1d.cu",
@@ -557,8 +559,7 @@ def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
     g = torch.randn((n_, 41, h_, w_), generator=gen).to(dev)
     for dtype, rel in REL_TOL.items():
         a, b, gg = f1.to(dtype), f2.to(dtype), g.to(dtype)
-        an, bn = nhwc(a), nhwc(b)
-        got = correlation_1d_cuda(an, bn, **wrap_kw)
+        got = correlation_1d_cuda(a, b, **wrap_kw)
         torch.cuda.synchronize()
         ref = correlation_1d_plain(a, b, **CORR1D)
         check(got.shape == ref.shape == (n_, 41, h_, w_) and got.dtype == dtype,
@@ -578,8 +579,8 @@ def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
             berrs.append(f"{what} {e_:.3g} (tol {rel * t_:.3g})")
             berr = max(berr, e_)
         del dgot, dref, ag, bg
-        ms = cuda_ms(lambda: correlation_1d_cuda(an, bn, **wrap_kw))
-        bms = cuda_ms(lambda: correlation_1d_backward_cuda(an, bn, gg, **wrap_kw))
+        ms = cuda_ms(lambda: correlation_1d_cuda(a, b, **wrap_kw))
+        bms = cuda_ms(lambda: correlation_1d_backward_cuda(a, b, gg, **wrap_kw))
         plain_ms = cuda_ms(lambda: correlation_1d_plain(a, b, **CORR1D))
         plain_bms = cuda_ms(lambda: correlation_1d_backward_plain(a, b, gg, **CORR1D), warmup=1, runs=3)
         bf, bb = corr1d_bound(CORR1D_SHAPE, dtype), corr1d_bound(CORR1D_SHAPE, dtype, backward=True)
@@ -596,7 +597,7 @@ def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
         for entry, e, t, p, bd in ((fwd, err, ms, plain_ms, bf), (bwd, berr, bms, plain_bms, bb)):
             entry.update({f"max_abs_err{suffix}": e, f"ms{suffix}": t, f"plain_ms{suffix}": p,
                           f"bound_ms{suffix}": bd["bound_ms"], f"bound_by{suffix}": bd["bound_by"]})
-        del a, b, gg, an, bn
+        del a, b, gg
     del f1, f2, g
 
     gen = torch.Generator().manual_seed(SEED + 11)
@@ -611,21 +612,20 @@ def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
             errs = []
             for dtype, rel in REL_TOL.items():
                 a, b, gg = k1.to(dtype), k2.to(dtype), gk.to(dtype)
-                an, bn = nhwc(a), nhwc(b)
-                got = correlation_1d_cuda(an, bn, **wkw)
-                dgot = correlation_1d_backward_cuda(an, bn, gg, **wkw)
+                got = correlation_1d_cuda(a, b, **wkw)
+                dgot = correlation_1d_backward_cuda(a, b, gg, **wkw)
                 torch.cuda.synchronize()
                 ref = correlation_1d_plain(a, b, **kw)
                 dref = correlation_1d_backward_plain(a, b, gg, **kw)
-                for what, x, y in (("out", got, ref), ("df1", dgot[0], nhwc(dref[0])), ("df2", dgot[1], nhwc(dref[1]))):
+                for what, x, y in (("out", got, ref), ("df1", dgot[0], dref[0]), ("df2", dgot[1], dref[1])):
                     e_, t_ = abs_err_and_scale(x, y)
                     check(x.shape == y.shape, f"correlation_1d KITTI sd={sd} stride2={s2} {what} {dtype}: shape")
                     check(e_ <= rel * t_, f"correlation_1d KITTI sd={sd} stride2={s2} {what} {dtype}: "
                                           f"max abs err {e_} > {rel * t_}")
                     errs.append(f"{str(dtype)[6:]} {what} {e_:.3g} (tol {rel * t_:.3g})")
                 if (sd, s2, dtype) == (-1, 1, torch.float32):
-                    kms = cuda_ms(lambda: correlation_1d_cuda(an, bn, **wkw))
-                    kbms = cuda_ms(lambda: correlation_1d_backward_cuda(an, bn, gg, **wkw))
+                    kms = cuda_ms(lambda: correlation_1d_cuda(a, b, **wkw))
+                    kbms = cuda_ms(lambda: correlation_1d_backward_cuda(a, b, gg, **wkw))
                     kbf = corr1d_bound(CORR1D_KITTI_SHAPE)
                     kbb = corr1d_bound(CORR1D_KITTI_SHAPE, backward=True)
                     fwd.update(kitti_ms=kms, kitti_bound_ms=kbf["bound_ms"])
@@ -633,11 +633,85 @@ def phase_corr1d_kernels(dev: torch.device, card: str) -> dict:
                     print(f"[kernels] correlation_1d f32 {CORR1D_KITTI_SHAPE} (KITTI): forward {kms:.4f} ms, bound "
                           f"{kbf['bound_ms']:.4f} ms ({kbf['bound_by']}); backward {kbms:.4f} ms, bound "
                           f"{kbb['bound_ms']:.4f} ms ({kbb['bound_by']}) ({card})")
-                del a, b, gg, an, bn, got, dgot, ref, dref
+                del a, b, gg, got, dgot, ref, dref
             print(f"[kernels] correlation_1d {CORR1D_KITTI_SHAPE} single_direction={sd} stride2={s2} ({gw} "
                   f"channels), forward and backward: max abs err {'; '.join(errs)}")
+    del k1, k2
+    corr1d_offset_case(dev)
+    general_correlations(dev)
     torch.cuda.empty_cache()
     return {"correlation_1d": fwd, "correlation_1d_backward": bwd}
+
+
+def corr1d_offset_case(dev: torch.device) -> None:
+    """Both 1-D kernels on bfloat16 NCHW maps that start one element into
+    their allocation, 241 columns wide (odd, so every other channel row
+    starts on an odd element: no cp.async copy can move its first column),
+    DispNet's configuration: within 2e-2 x max|ref| of the plain versions."""
+    from flownet2_tpu_torch.ops.correlation import (
+        correlation_1d_backward_cuda, correlation_1d_backward_plain, correlation_1d_cuda, correlation_1d_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    shape = (2, 128, 8, 241)
+    numel = int(np.prod(shape))
+    buf = torch.randn(2 * numel + 1, generator=gen).to(dev, torch.bfloat16)
+    a, b = buf[1:1 + numel].view(shape), buf[1 + numel:].view(shape)
+    gg = torch.randn((2, 41, 8, 241), generator=gen).to(dev, torch.bfloat16)
+    kw = dict(max_displacement=40, stride2=1, single_direction=-1)
+    got, dgot = correlation_1d_cuda(a, b, **kw), correlation_1d_backward_cuda(a, b, gg, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for what, x, y in (("out", got, correlation_1d_plain(a, b, **CORR1D)),
+                       *zip(("df1", "df2"), dgot, correlation_1d_backward_plain(a, b, gg, **CORR1D))):
+        e_, t_ = abs_err_and_scale(x, y)
+        check(x.shape == y.shape and e_ <= 2e-2 * t_, f"correlation_1d bf16 offset 1 {what}: max abs err {e_}")
+        errs.append(f"{what} {e_:.3g} (tol {2e-2 * t_:.3g})")
+    print(f"[kernels] correlation_1d bf16 {shape} at storage offset 1, forward and backward: max abs err "
+          f"{'; '.join(errs)}")
+
+
+# Correlation configurations no kernel takes (the kernels' is multiply, k 1,
+# stride1 1, pad == md): the dispatchers run the plain versions on the card
+GENERAL_CORR_CONFIGS = {
+    "k3": dict(max_displacement=4, kernel_size=3, stride1=1, stride2=1, pad=5),
+    "stride1 2": dict(max_displacement=4, kernel_size=1, stride1=2, stride2=2, pad=4),
+    "subtract": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=1, pad=4, multiply=False),
+    "pad 2 < md 4": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=2, pad=2),
+}
+
+
+def general_correlations(dev: torch.device) -> None:
+    """``correlation`` and ``correlation_1d`` on the card in each of
+    GENERAL_CORR_CONFIGS: the output and both gradients (autograd) within
+    1e-5 x max|ref| of the same call on the CPU, and no kernel launched."""
+    from flownet2_tpu_torch.ops.correlation import (
+        correlation, correlation_1d, correlation_1d_backward_cuda, correlation_1d_cuda, correlation_backward_cuda,
+        correlation_cuda,
+    )
+
+    kernels = (correlation_cuda, correlation_backward_cuda, correlation_1d_cuda, correlation_1d_backward_cuda)
+    before = [k.launches for k in kernels]
+    gen = torch.Generator().manual_seed(SEED + 13)
+    f1, f2 = (torch.randn(2, 32, 24, 40, generator=gen) for _ in range(2))
+    worst = 0.0
+    for case, kw in GENERAL_CORR_CONFIGS.items():
+        for port, extra in ((correlation, {}), (correlation_1d, dict(single_direction=-1))):
+            results = []
+            for d in (dev, torch.device("cpu")):
+                a, b = f1.to(d).requires_grad_(True), f2.to(d).requires_grad_(True)
+                out = port(a, b, **kw, **extra)
+                grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED + 14)).to(d)
+                results.append((out.detach(), *torch.autograd.grad(out, (a, b), grad)))
+            torch.cuda.synchronize()
+            for what, x, y in zip(("out", "df1", "df2"), *results):
+                e_, t_ = abs_err_and_scale(x.cpu(), y)
+                check(x.device.type == "cuda" and x.shape == y.shape and e_ <= 1e-5 * t_,
+                      f"{port.__name__} {case} on the card vs the CPU, {what}: max abs err {e_} > {1e-5 * t_}")
+                worst = max(worst, e_ / max(t_, 1e-30))
+    check([k.launches for k in kernels] == before, "general correlation configurations launched a kernel")
+    print(f"[kernels] correlation and correlation_1d, {', '.join(GENERAL_CORR_CONFIGS)} (no kernel takes "
+          f"them): card vs CPU, output and both gradients, worst max abs err {worst:.3g} x max|ref| (tol 1e-5)")
 
 
 # K3's geometries at Sintel b4, one per distinct layer shape of a FlowNet2

@@ -31,7 +31,7 @@ SOURCES = (
     "warp.cu", "warp_bwd.cu", "correlation.cu", "correlation_bwd.cu", "correlation1d.cu", "correlation1d_bwd.cu",
     "head_conv.cu", "head_conv_tc.cu", "fusion_head.cu", "fusion_head_tc.cu", "status.cu",
 )
-HEADERS = ("common.cuh", "warp.cuh", "mma.cuh", "fusion_head.cuh")
+HEADERS = ("common.cuh", "corr1d.cuh", "warp.cuh", "mma.cuh", "fusion_head.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,9 +52,9 @@ _SIGNATURES = {
     # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement,
     # stride2, dtype, stream
     "fn2_correlation_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # f1, f2, out, n, h, w, c, max_displacement, stride2, single_direction, dtype, stream
+    # f1, f2, out, n, c, h, w, max_displacement, stride2, single_direction, dtype, stream
     "fn2_correlation_1d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # f1, f2, grad, df1 (or null), df2 (or null), n, h, w, c, max_displacement, stride2,
+    # f1, f2, grad, df1 (or null), df2 (or null), n, c, h, w, max_displacement, stride2,
     # single_direction, dtype, stream
     "fn2_correlation_1d_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, weight (packed by ops/head_conv.pack_head_weight_f32 / pack_head_weight), bias, out, n, cin,

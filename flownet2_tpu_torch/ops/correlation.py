@@ -13,22 +13,25 @@ Counterpart of flownet2_tpu/ops/correlation.py (``correlation`` and
 - multiply mode: the mean over the k*k*C window of f1 * f2; subtract mode:
   the mean of |f1 - f2| over the same window.
 
-Layout: f1, f2 (N, C, H, W) -> (N, gw**2, out_h, out_w). A CUDA tensor goes
-to an autograd Function over the hand-written kernels (forward
-csrc/correlation.cu, backward csrc/correlation_bwd.cu), which cover the
-FlowNet configuration (multiply, k=1, stride1=1, pad == max_displacement)
-and raise NotImplementedError otherwise (and ValueError where a kernel's
-wrapper refuses a shape); a CPU tensor goes to
-:func:`correlation_plain`, which covers every configuration and which
-autograd differentiates.
+Layout: f1, f2 (N, C, H, W) -> (N, gw**2, out_h, out_w). On CUDA tensors
+the FlowNet configuration (multiply, k=1, stride1=1, pad ==
+max_displacement) goes to an autograd Function over the hand-written
+kernels (forward csrc/correlation.cu, backward csrc/correlation_bwd.cu;
+ValueError where a kernel's wrapper refuses a shape, and a kernel that
+fails to build or launch raises: nothing falls back). Every other
+configuration, on the card as on the CPU, goes to
+:func:`correlation_plain`, torch ops that autograd differentiates, as the
+JAX package sends those configurations to its general XLA scan. The choice
+is made from the configuration alone.
 
 The 1-D (stereo) correlation of DispNetC (``correlation_1d``; reference
 correlation_layer1d.{cpp,cu}) pads the width only, has no vertical
 displacement, and searches one side (``single_direction`` -1 / +1: gr + 1
 channels) or both (0: 2*gr + 1). Its CUDA kernels (csrc/correlation1d.cu,
-csrc/correlation1d_bwd.cu) cover DispNet's configuration (multiply, k=1,
-stride1=1, pad == max_displacement) and raise NotImplementedError
-otherwise; :func:`correlation_1d_plain` covers every configuration.
+csrc/correlation1d_bwd.cu) take DispNet's configuration (multiply, k=1,
+stride1=1, pad == max_displacement) on the nets' NCHW tensors directly;
+:func:`correlation_1d_plain` computes every other configuration, on the
+card and on the CPU.
 """
 
 from __future__ import annotations
@@ -59,14 +62,10 @@ def correlation(
     stride1: int = 1, stride2: int = 1, pad: int = 0, multiply: bool = True,
 ) -> torch.Tensor:
     """Cost volume of f1 vs f2, both (N, C, H, W) -> (N, gw**2, out_h, out_w)."""
-    if f1.device.type == "cuda":
-        if not (multiply and kernel_size == 1 and stride1 == 1 and pad == max_displacement):
-            raise NotImplementedError(
-                "the CUDA correlation covers multiply mode with kernel_size=1, "
-                "stride1=1 and pad == max_displacement only"
-            )
+    kernel = multiply and kernel_size == 1 and stride1 == 1 and pad == max_displacement
+    if f1.device.type == "cuda" and kernel:
         return _CorrelationCuda.apply(f1, f2, max_displacement, stride2)
-    if f1.device.type == "cpu" and f2.device.type == "cpu":
+    if f1.device == f2.device and f1.device.type in ("cuda", "cpu"):
         return correlation_plain(
             f1, f2, max_displacement=max_displacement, kernel_size=kernel_size,
             stride1=stride1, stride2=stride2, pad=pad, multiply=multiply,
@@ -282,14 +281,10 @@ def correlation_1d(
     stride1: int = 1, stride2: int = 1, pad: int = 0, single_direction: int = 0, multiply: bool = True,
 ) -> torch.Tensor:
     """Horizontal cost volume of f1 vs f2, both (N, C, H, W) -> (N, gw, out_h, out_w)."""
-    if f1.device.type == "cuda":
-        if not (multiply and kernel_size == 1 and stride1 == 1 and pad == max_displacement):
-            raise NotImplementedError(
-                "the CUDA 1-D correlation covers multiply mode with kernel_size=1, "
-                "stride1=1 and pad == max_displacement only"
-            )
+    kernel = multiply and kernel_size == 1 and stride1 == 1 and pad == max_displacement
+    if f1.device.type == "cuda" and kernel:
         return _Correlation1dCuda.apply(f1, f2, max_displacement, stride2, single_direction)
-    if f1.device.type == "cpu" and f2.device.type == "cpu":
+    if f1.device == f2.device and f1.device.type in ("cuda", "cpu"):
         return correlation_1d_plain(
             f1, f2, max_displacement=max_displacement, kernel_size=kernel_size, stride1=stride1,
             stride2=stride2, pad=pad, single_direction=single_direction, multiply=multiply,
@@ -298,24 +293,25 @@ def correlation_1d(
 
 
 class _Correlation1dCuda(torch.autograd.Function):
-    """The 1-D CUDA kernels under autograd; the forward's channels-last
-    copies are saved for the backward kernel."""
+    """The 1-D CUDA kernels under autograd. Both read and write the nets'
+    NCHW layout, so f1 and f2 are saved as they are, with no layout copy."""
 
     @staticmethod
     def forward(ctx, f1, f2, max_displacement, stride2, single_direction):
-        f1c, f2c = f1.permute(0, 2, 3, 1).contiguous(), f2.permute(0, 2, 3, 1).contiguous()
-        ctx.save_for_backward(f1c, f2c)
+        # the nets pass contiguous maps; anything else is made contiguous once
+        f1, f2 = f1.contiguous(), f2.contiguous()
+        ctx.save_for_backward(f1, f2)
         ctx.corr = dict(max_displacement=max_displacement, stride2=stride2, single_direction=single_direction)
-        return correlation_1d_cuda(f1c, f2c, **ctx.corr)
+        return correlation_1d_cuda(f1, f2, **ctx.corr)
 
     @staticmethod
     def backward(ctx, grad):
-        f1c, f2c = ctx.saved_tensors
+        f1, f2 = ctx.saved_tensors
         need_f1, need_f2 = ctx.needs_input_grad[:2]
         df1, df2 = correlation_1d_backward_cuda(
-            f1c, f2c, grad.to(f1c.dtype).contiguous(), **ctx.corr, need_f1=need_f1, need_f2=need_f2,
+            f1, f2, grad.to(f1.dtype).contiguous(), **ctx.corr, need_f1=need_f1, need_f2=need_f2,
         )
-        return tuple(None if d is None else d.permute(0, 3, 1, 2) for d in (df1, df2)) + (None, None, None)
+        return df1, df2, None, None, None
 
 
 def correlation_1d_plain(
@@ -373,27 +369,21 @@ def correlation_1d_backward_plain(
 
 def _check_corr1d_inputs(name: str, f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,
                          stride2: int) -> tuple[int, int, int, int]:
-    """The checks both 1-D wrappers make on f1 and f2 (N, H, W, C); returns the shape."""
+    """The checks both 1-D wrappers make on f1 and f2 (N, C, H, W); returns the shape."""
     if f1.device.type != "cuda" or f2.device != f1.device:
         raise ValueError(f"{name} needs CUDA tensors on one device, got {f1.device} / {f2.device}")
     if f1.dim() != 4 or f1.shape != f2.shape:
-        raise ValueError(f"need two equal (N, H, W, C) inputs, got {tuple(f1.shape)} and {tuple(f2.shape)}")
+        raise ValueError(f"need two equal (N, C, H, W) inputs, got {tuple(f1.shape)} and {tuple(f2.shape)}")
     if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype:
         raise TypeError(f"{name}: dtypes {f1.dtype} / {f2.dtype}; need both float32 or both bfloat16")
     if max_displacement < 0 or stride2 < 1:
         raise ValueError(f"bad max_displacement={max_displacement} / stride2={stride2}")
-    n, h, w, c = f1.shape
-    if n > 65535 or h > 65535:
-        raise ValueError(f"{name}: N={n} and H={h} must each be <= 65535 (grid limits)")
-    if w * c >= 2**31:
-        raise ValueError(f"{name} takes W*C < 2**31 (32-bit offsets within a row); got W={w}, C={c}")
-    if f1.dtype == torch.bfloat16 and c % 2:
-        raise ValueError(f"{name}: bfloat16 needs an even channel count, got C={c}")
-    if f1.data_ptr() % 4 or f2.data_ptr() % 4:
-        raise ValueError(f"{name}: inputs must start 4-byte aligned (the kernels copy 4 bytes at a time)")
+    n, c, h, w = f1.shape
+    if n * h >= 2**30:
+        raise ValueError(f"{name} takes N*H < 2**30 (32-bit work items); got N={n}, H={h}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
-        raise ValueError(f"{name}: inputs must be contiguous (N, H, W, C)")
-    return n, h, w, c
+        raise ValueError(f"{name}: inputs must be contiguous (N, C, H, W)")
+    return n, c, h, w
 
 
 def correlation_1d_cuda(
@@ -402,21 +392,19 @@ def correlation_1d_cuda(
     """Launch the 1-D forward kernel (csrc/correlation1d.cu) on the current stream.
 
     DispNet configuration only (multiply, k=1, stride1=1, pad=max_displacement).
-    Takes f1, f2 (N, H, W, C) channels-last, contiguous, 4-byte aligned,
-    float32 or bfloat16 (then with C even: the kernel copies 4 bytes at a
-    time, 16 where C and the addresses allow), on one CUDA device, with
-    W*C < 2**31; returns (N, gw, H, W) in their dtype. Raises on
-    anything else; a launch plan that does not fit a block (stride2 *
-    ceil(gw / 7) > 256 threads) fails in the launch.
+    Takes f1, f2 (N, C, H, W) contiguous, float32 or bfloat16, any C and
+    storage offset, on one CUDA device, with N*H < 2**30; returns (N, gw,
+    H, W) in their dtype. Raises on anything else, and where a column
+    tile's f2 halo does not fit shared memory (a gw of thousands).
     """
-    n, h, w, c = _check_corr1d_inputs("correlation_1d_cuda", f1, f2, max_displacement, stride2)
+    n, c, h, w = _check_corr1d_inputs("correlation_1d_cuda", f1, f2, max_displacement, stride2)
     gw, _ = _corr1d_geometry(max_displacement, stride2, single_direction)
     out = torch.empty((n, gw, h, w), dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:
         return out
     lib = _build.library()
     status = lib.fn2_correlation_1d(
-        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, h, w, c, max_displacement, stride2,
+        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, c, h, w, max_displacement, stride2,
         (single_direction > 0) - (single_direction < 0), _build.DTYPE_CODES[f1.dtype],
         torch.cuda.current_stream(f1.device).cuda_stream,
     )
@@ -434,14 +422,15 @@ def correlation_1d_backward_cuda(
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """Launch the 1-D backward kernel (csrc/correlation1d_bwd.cu) on the current stream.
 
-    DispNet configuration only. Takes f1, f2 (N, H, W, C) channels-last,
-    4-byte aligned, and grad (N, gw, H, W), contiguous, all float32 or all
-    bfloat16 (then with C even), on one CUDA device, with W*C < 2**31; returns (df1, df2) (N, H, W,
-    C) in their dtype, None for a gradient not asked for. Both gradients are
-    one launch. Raises on anything else, and where a column run's g values
-    and f rows do not fit shared memory (gw above about 400 at stride2 1 in float32).
+    DispNet configuration only. Takes f1, f2 (N, C, H, W) and grad (N, gw,
+    H, W), contiguous, all float32 or all bfloat16, any C and storage
+    offset, on one CUDA device, with N*H < 2**30; returns (df1, df2) (N, C,
+    H, W) contiguous in their dtype, None for a gradient not asked for.
+    Both gradients are one launch. Raises on anything else, and where a
+    column tile's g rows and f halo do not fit shared memory (a gw of
+    hundreds).
     """
-    n, h, w, c = _check_corr1d_inputs("correlation_1d_backward_cuda", f1, f2, max_displacement, stride2)
+    n, c, h, w = _check_corr1d_inputs("correlation_1d_backward_cuda", f1, f2, max_displacement, stride2)
     if grad.device != f1.device or grad.dtype != f1.dtype:
         raise TypeError(f"correlation_1d_backward_cuda: grad {grad.dtype} on {grad.device}; "
                         f"need {f1.dtype} on {f1.device}")
@@ -450,15 +439,15 @@ def correlation_1d_backward_cuda(
         raise ValueError(f"grad shape {tuple(grad.shape)}, expected {(n, gw, h, w)}")
     if not grad.is_contiguous():
         raise ValueError("correlation_1d_backward_cuda: grad must be contiguous")
-    df1 = torch.empty_like(f1) if need_f1 else None
-    df2 = torch.empty_like(f2) if need_f2 else None
+    df1 = torch.empty_like(f1, memory_format=torch.contiguous_format) if need_f1 else None
+    df2 = torch.empty_like(f2, memory_format=torch.contiguous_format) if need_f2 else None
     if not (need_f1 or need_f2) or f1.numel() == 0:
         return df1, df2
     lib = _build.library()
     status = lib.fn2_correlation_1d_backward(
         f1.data_ptr(), f2.data_ptr(), grad.data_ptr(),
         df1.data_ptr() if need_f1 else None, df2.data_ptr() if need_f2 else None,
-        n, h, w, c, max_displacement, stride2, (single_direction > 0) - (single_direction < 0),
+        n, c, h, w, max_displacement, stride2, (single_direction > 0) - (single_direction < 0),
         _build.DTYPE_CODES[f1.dtype], torch.cuda.current_stream(f1.device).cuda_stream,
     )
     _build.check_status(status, "correlation_1d_backward")

@@ -26,11 +26,20 @@ instead. It prints:
     python3 scripts/profile_slice.py --corr               # correlation fwd/bwd, K1, K2: device time
     python3 scripts/profile_slice.py --fusion-head-kernel # K4 beside the unfused route: device time
     python3 scripts/profile_slice.py --dispnet            # DispNetC forward and train step, 960x576 b4
+    python3 scripts/profile_slice.py --corr1d             # the 1-D correlation kernels and op: device time
 
 With ``--dispnet`` it profiles DispNetC instead (default 960x576 b4, the
 FlyingThings3D frames adapted): ``FlowRunner("dispnetc").run`` per dtype,
 then one float32 Adam ``Solver.step`` of its loss on seeded images and
 disparity, each with the 1-D correlation kernels' own rows.
+With ``--corr1d`` it times the 1-D correlation's kernels (DispNet's md 40,
+single_direction -1, stride2 1) at DispNetC's FlyingThings3D features
+4x128x144x240 and KITTI's 1x128x96x320 in both dtypes: each wrapper's
+kernel alone, then the op as the nets call it (``correlation_1d`` and its
+autograd backward on NCHW maps), kernels and everything else it launches
+(layout copies) apart. It runs in a parent's tree too: a package whose
+1-D wrappers take channels-last maps (the parent of the NCHW kernels) is
+given them, so parent and new can be timed in turns in one call.
 With ``--head-layers`` it runs K3's wrappers on each of its Sintel b4 layer
 shapes (``chip_smoke.HEAD_GEOMETRIES``) and prints, per call, the device
 time of the head kernel, of everything else the wrapper launches (the
@@ -76,6 +85,7 @@ OP_PARTS = {
     "cuDNN conv and deconv backward": ("aten::convolution_backward",),
     "bias add_ (separate kernel)": ("aten::add_",),
     "leaky ReLU (where + ge)": ("aten::where", "aten::ge"),
+    "layout copies (copy_, clone)": ("aten::copy_", "aten::clone"),
 }
 HEAD_PART = "head_conv kernels (K3: conv and deconv; f32 CUDA cores, bf16 tensor cores)"
 # part of the slice -> substrings of the device kernels' names
@@ -430,6 +440,42 @@ def profile_corr(args, dev: torch.device) -> str:
     return "\n".join(lines + profile_warp(dev, args.dtypes))
 
 
+def profile_corr1d(args, dev: torch.device) -> str:
+    """The 1-D correlation's kernels, and the op around them, at DispNetC's
+    two feature shapes (``chip_smoke.CORR1D_SHAPE``, ``CORR1D_KITTI_SHAPE``)."""
+    from chip_smoke import CORR1D, CORR1D_KITTI_SHAPE, CORR1D_SHAPE
+    from flownet2_tpu_torch.ops.correlation import correlation_1d, correlation_1d_backward_cuda, correlation_1d_cuda
+
+    nchw = "(N, C, H, W)" in correlation_1d_cuda.__doc__  # else a parent's channels-last wrappers
+    kw = dict(max_displacement=40, stride2=1, single_direction=-1)
+    fwd_k, bwd_k = KERNEL_PARTS["correlation_1d kernel"], KERNEL_PARTS["correlation_1d backward kernel"]
+    g = torch.Generator().manual_seed(SEED)
+    lines = [f"correlation_1d wrappers take {'NCHW' if nchw else 'NHWC'} maps"]
+    for n, c, h, w in (CORR1D_SHAPE, CORR1D_KITTI_SHAPE):
+        f1, f2 = (torch.randn(n, c, h, w, generator=g) for _ in range(2))
+        grad = torch.randn(n, 41, h, w, generator=g)
+        for dtype in args.dtypes:
+            a, b, gr = (t.to(dev, getattr(torch, dtype)) for t in (f1, f2, grad))
+            ak, bk = (a, b) if nchw else (a.permute(0, 2, 3, 1).contiguous(), b.permute(0, 2, 3, 1).contiguous())
+            fwd = _device_us(lambda: correlation_1d_cuda(ak, bk, **kw), fwd_k)
+            bwd = _device_us(lambda: correlation_1d_backward_cuda(ak, bk, gr, **kw), bwd_k)
+            del ak, bk
+            a.requires_grad_(True)
+            b.requires_grad_(True)
+            op_f = _device_us(lambda: correlation_1d(a, b, **CORR1D), fwd_k)
+            op_b = _device_us(lambda: torch.autograd.grad(correlation_1d(a, b, **CORR1D), (a, b), gr),
+                              fwd_k + bwd_k)
+            lines.append(
+                f"correlation_1d {n}x{c}x{h}x{w} -> 41 {dtype}: forward kernel {fwd['kernel'] / 1e3:.4f} ms, "
+                f"backward (df1 and df2) kernel {bwd['kernel'] / 1e3:.4f} ms per call; the op on NCHW maps: "
+                f"forward {(op_f['kernel'] + op_f['other']) / 1e3:.4f} ms (copies and other "
+                f"{op_f['other'] / 1e3:.4f}), forward and backward {(op_b['kernel'] + op_b['other']) / 1e3:.4f} "
+                f"ms (copies and other {op_b['other'] / 1e3:.4f})")
+            del a, b, gr
+        torch.cuda.empty_cache()
+    return "\n".join(lines + ["registers and spills (nvcc -Xptxas -v):", *kernel_resources("correlation1d")])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--height", type=int, default=None, help="default 320; 576 with --dispnet")
@@ -445,6 +491,8 @@ def main(argv=None) -> int:
     p.add_argument("--corr", action="store_true",
                    help="the correlation forward and backward at 448x320 b8 and Sintel b4, K1 and K2")
     p.add_argument("--dispnet", action="store_true", help="DispNetC's forward and train step (960x576 b4)")
+    p.add_argument("--corr1d", action="store_true",
+                   help="the 1-D correlation kernels and op at 4x128x144x240 and 1x128x96x320: device time")
     args = p.parse_args(argv)
     defaults = (576, 960, 4) if args.dispnet else (320, 448, 8)
     args.height, args.width, args.batch = (v or d for v, d in zip((args.height, args.width, args.batch), defaults))
@@ -466,6 +514,8 @@ def main(argv=None) -> int:
         print(profile_fusion_head(args, dev))
     elif args.corr:
         print(profile_corr(args, dev))
+    elif args.corr1d:
+        print(profile_corr1d(args, dev))
     elif args.dispnet:
         print(profile_dispnet(args, dev))
     elif args.train:

@@ -261,10 +261,8 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         flow_warp(img, flow.cpu())
     f = torch.zeros(1, 8, 6, 6, device=cuda)
-    with pytest.raises(NotImplementedError):
-        correlation(f, f, max_displacement=2, kernel_size=3, pad=3)
-    with pytest.raises(NotImplementedError):
-        correlation(f, f, max_displacement=2, pad=2, multiply=False)
+    with pytest.raises(ValueError):
+        correlation(f, f.cpu(), max_displacement=2, kernel_size=3, pad=3)
     with pytest.raises(TypeError):
         correlation(f.half(), f.half(), max_displacement=2, pad=2)
     odd = torch.zeros(1, 6, 6, 9, device=cuda, dtype=torch.bfloat16)
@@ -747,19 +745,19 @@ def test_flownet2_wide_bf16_on_card_uses_head_kernels(cuda, fused):
 
 # -- the 1-D (stereo) correlation ------------------------------------------------
 
-# C, H, W, max_displacement, stride2, single_direction. Column tiles: the
-# forward's are at most 128 columns a plane in float32 and 84 in bfloat16 at
-# DispNet's gw 41, the backward's 64 columns a plane; W below (33, 57, 70, 100),
-# at (64, 84, 128) and above (130, 240, 300) them, and W < md (33 at md 40).
+# C, H, W, max_displacement, stride2, single_direction. Both kernels stage
+# whole rows up to their thread and shared-memory limits and tile the
+# columns past them (the forward at 320 columns and gw 81, the backward at
+# 320 in float32); W below md (33 at md 40), odd (57), not a multiple of 4
+# (70, 130, 50: scalar stores, unaligned rows), C not a multiple of the
+# chunks (100, 99, 20, 8) and odd in bfloat16 (99), stride2 1, 2 and 3 (the
+# kernels' general-stride path).
 CORR1D_CASES = [
     (128, 3, 240, 40, 1, -1), (128, 2, 128, 40, 1, -1), (64, 3, 84, 40, 1, -1), (64, 3, 33, 40, 1, -1),
     (100, 4, 100, 40, 1, 0), (99, 3, 57, 4, 1, 1), (32, 3, 70, 40, 2, -1), (20, 2, 130, 20, 2, 1),
-    (8, 2, 300, 4, 2, 0), (256, 2, 64, 40, 1, 1),
+    (8, 2, 300, 4, 2, 0), (256, 2, 64, 40, 1, 1), (128, 2, 320, 40, 1, 0), (16, 2, 50, 9, 3, 0),
 ]
-CORR1D_DTYPE_CASES = [
-    (*case, dtype, rel) for case in CORR1D_CASES for dtype, rel in DTYPE_TOLS
-    if case[0] % 2 == 0 or dtype == torch.float32
-]
+CORR1D_DTYPE_CASES = [(*case, dtype, rel) for case in CORR1D_CASES for dtype, rel in DTYPE_TOLS]
 
 
 def _corr1d_kw(md, s2, sd):
@@ -776,12 +774,12 @@ def _corr1d_inputs(device, dtype, n, c, h, w, md, s2, sd, seed):
 
 @pytest.mark.parametrize("c,h,w,md,s2,sd,dtype,rel", CORR1D_DTYPE_CASES)
 def test_correlation_1d_kernel_matches_plain(cuda, c, h, w, md, s2, sd, dtype, rel):
-    """The 1-D forward through correlation_1d (one launch) against
-    correlation_1d_plain on the card, every single_direction, stride2 1 and
-    2, channel counts that are not a multiple of the 16 (f32) or 32 (bf16)
-    channel chunks and take the 4-byte copies (99 f32, 100 and 20 bf16): f32
-    within 1e-5 * max|ref| (sums in another order), bf16 within 2e-2 *
-    max|ref| (one bf16 rounding of the output)."""
+    """The 1-D forward through correlation_1d on NCHW maps (one launch)
+    against correlation_1d_plain on the card, every single_direction,
+    stride2 1, 2 and 3, channel counts that are not a multiple of the 16
+    (f32) or 32 (bf16) channel chunks: f32 within 1e-5 * max|ref| (sums in
+    another order), bf16 within 2e-2 * max|ref| (one bf16 rounding of the
+    output)."""
     f1, f2, _ = _corr1d_inputs(cuda, dtype, 2, c, h, w, md, s2, sd, seed=c + w + md)
     kw = _corr1d_kw(md, s2, sd)
     before = correlation_1d_cuda.launches
@@ -796,9 +794,10 @@ def test_correlation_1d_kernel_matches_plain(cuda, c, h, w, md, s2, sd, dtype, r
 @pytest.mark.parametrize("c,h,w,md,s2,sd,dtype,rel", CORR1D_DTYPE_CASES)
 def test_correlation_1d_backward_kernel_matches_plain(cuda, c, h, w, md, s2, sd, dtype, rel):
     """Gradients through correlation_1d on the card (one launch of the
-    backward kernel for df1 and df2) against correlation_1d_backward_plain,
-    on the forward's cases and tolerances (channel counts that are not a
-    multiple of the 64-channel runs: 100, 99, 20, 8)."""
+    backward kernel for df1 and df2, NCHW in and out) against
+    correlation_1d_backward_plain, on the forward's cases and tolerances
+    (channel counts that are not a multiple of the 32 (f32) or 64 (bf16)
+    channel chunks: 100, 99, 20, 8)."""
     f1, f2, grad = _corr1d_inputs(cuda, dtype, 2, c, h, w, md, s2, sd, seed=c + w + md + 1)
     kw = _corr1d_kw(md, s2, sd)
     a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
@@ -818,70 +817,135 @@ def test_correlation_1d_backward_kernel_one_sided(cuda, need, dtype):
     """need_f1 only or need_f2 only: one launch, the other gradient None, and
     the one asked for equal to the same gradient of the two-sided call."""
     f1, f2, grad = _corr1d_inputs(cuda, dtype, 2, 128, 3, 100, 40, 1, -1, seed=9)
-    nhwc = (lambda t: t.permute(0, 2, 3, 1).contiguous())
     kw = dict(max_displacement=40, stride2=1, single_direction=-1)
-    both = correlation_1d_backward_cuda(nhwc(f1), nhwc(f2), grad, **kw)
+    both = correlation_1d_backward_cuda(f1, f2, grad, **kw)
     before = correlation_1d_backward_cuda.launches
-    got = correlation_1d_backward_cuda(nhwc(f1), nhwc(f2), grad, **kw, need_f1=need == "f1", need_f2=need == "f2")
+    got = correlation_1d_backward_cuda(f1, f2, grad, **kw, need_f1=need == "f1", need_f2=need == "f2")
     torch.cuda.synchronize()
     assert correlation_1d_backward_cuda.launches == before + 1
     k = 0 if need == "f1" else 1
     assert got[1 - k] is None
     assert torch.equal(got[k], both[k])
-    _rel_close(got[k], nhwc(correlation_1d_backward_plain(f1, f2, grad, **_corr1d_kw(40, 1, -1))[k]),
+    _rel_close(got[k], correlation_1d_backward_plain(f1, f2, grad, **_corr1d_kw(40, 1, -1))[k],
                1e-5 if dtype == torch.float32 else 2e-2)
 
 
-def test_correlation_1d_kernels_at_a_storage_offset(cuda):
-    """float32 inputs that start one element into their allocation: not
-    16-byte aligned, so the kernels take their 4-byte copies; within 1e-5 *
-    max|ref| of the plain versions."""
-    g0 = torch.Generator().manual_seed(10)
-    buf = torch.randn(3 * 2 * 40 * 64 + 1, generator=g0).to(cuda)
-    f1 = buf[1:1 + 2 * 40 * 64].view(1, 2, 40, 64)  # (N, H, W, C), odd element offset
-    f2 = buf[1 + 2 * 40 * 64:1 + 4 * 40 * 64].view(1, 2, 40, 64)
-    grad = torch.randn(1, 41, 2, 40, generator=g0).to(cuda)
+@pytest.mark.parametrize("dtype,offset,c,w", [
+    (torch.float32, 1, 64, 40), (torch.float32, 3, 7, 41), (torch.bfloat16, 1, 64, 40), (torch.bfloat16, 1, 7, 41),
+])
+def test_correlation_1d_kernels_at_a_storage_offset(cuda, dtype, offset, c, w):
+    """NCHW maps that start `offset` elements into their allocation: no row
+    is 16-byte aligned, so the kernels take their narrower copies; in
+    bfloat16 an odd offset puts every row's first column (and, at W 41,
+    every other row's) on an odd element, which no cp.async copy can move.
+    Forward and both gradients within 1e-5 (f32) or 2e-2 (bf16) x max|ref|
+    of the plain versions."""
+    g0 = torch.Generator().manual_seed(10 + c)
+    numel = 2 * c * 3 * w
+    buf = torch.randn(2 * numel + offset, generator=g0).to(cuda, dtype)
+    f1 = buf[offset:offset + numel].view(2, c, 3, w)
+    f2 = buf[offset + numel:offset + 2 * numel].view(2, c, 3, w)
+    assert f1.is_contiguous() and f1.storage_offset() == offset
+    grad = torch.randn(2, 41, 3, w, generator=g0).to(cuda, dtype)
     kw = dict(max_displacement=40, stride2=1, single_direction=-1)
     out = correlation_1d_cuda(f1, f2, **kw)
     df1, df2 = correlation_1d_backward_cuda(f1, f2, grad, **kw)
     torch.cuda.synchronize()
-    nchw = (lambda t: t.permute(0, 3, 1, 2))
-    _rel_close(out, correlation_1d_plain(nchw(f1), nchw(f2), **_corr1d_kw(40, 1, -1)), 1e-5)
-    ref1, ref2 = correlation_1d_backward_plain(nchw(f1), nchw(f2), grad, **_corr1d_kw(40, 1, -1))
-    _rel_close(df1, ref1.permute(0, 2, 3, 1), 1e-5)
-    _rel_close(df2, ref2.permute(0, 2, 3, 1), 1e-5)
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    _rel_close(out, correlation_1d_plain(f1, f2, **_corr1d_kw(40, 1, -1)), rel)
+    ref1, ref2 = correlation_1d_backward_plain(f1, f2, grad, **_corr1d_kw(40, 1, -1))
+    _rel_close(df1, ref1, rel)
+    _rel_close(df2, ref2, rel)
 
 
 def test_correlation_1d_wrappers_raise_on_what_they_do_not_take(cuda):
     before = correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches
     f = torch.zeros(1, 8, 6, 50, device=cuda)
-    for kw in (dict(kernel_size=3), dict(stride1=2), dict(multiply=False)):
-        with pytest.raises(NotImplementedError):
-            correlation_1d(f, f, max_displacement=4, pad=4, **kw)
-    with pytest.raises(NotImplementedError):
-        correlation_1d(f, f, max_displacement=4, pad=2)
     with pytest.raises(TypeError):
         correlation_1d(f.half(), f.half(), max_displacement=4, pad=4)
+    with pytest.raises(ValueError, match="devices"):
+        correlation_1d(f, f.cpu(), max_displacement=4, pad=2)
     kw = dict(max_displacement=4, stride2=1, single_direction=-1)
-    odd = torch.zeros(1, 6, 9, 9, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="even"):
-        correlation_1d_cuda(odd, odd, **kw)
-    with pytest.raises(ValueError, match="even"):
-        correlation_1d_backward_cuda(odd, odd, torch.zeros(1, 5, 6, 9, device=cuda, dtype=torch.bfloat16), **kw)
-    shifted = torch.zeros(1 + 6 * 9 * 8, device=cuda, dtype=torch.bfloat16)[1:].view(1, 6, 9, 8)
-    with pytest.raises(ValueError, match="4-byte"):
-        correlation_1d_cuda(shifted, shifted, **kw)
-    nhwc = torch.zeros(1, 6, 9, 8, device=cuda)
+    nchw = torch.zeros(1, 8, 6, 9, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        correlation_1d_cuda(nhwc.transpose(1, 2).contiguous().transpose(1, 2), nhwc, **kw)
+        correlation_1d_cuda(nchw.transpose(2, 3).contiguous().transpose(2, 3), nchw, **kw)
     with pytest.raises(ValueError, match="grad shape"):
-        correlation_1d_backward_cuda(nhwc, nhwc, torch.zeros(1, 9, 6, 9, device=cuda), **kw)
+        correlation_1d_backward_cuda(nchw, nchw, torch.zeros(1, 9, 6, 9, device=cuda), **kw)
     with pytest.raises(TypeError):
-        correlation_1d_backward_cuda(nhwc, nhwc, torch.zeros(1, 5, 6, 9, device=cuda, dtype=torch.bfloat16), **kw)
-    wide = torch.zeros(1, 1, 1, 1, device=cuda).expand(1, 1, 2**16, 2**15)  # W*C = 2**31: 32-bit row offsets
-    with pytest.raises(ValueError, match="2\\*\\*31"):
-        correlation_1d_cuda(wide, wide, **kw)
+        correlation_1d_backward_cuda(nchw, nchw, torch.zeros(1, 5, 6, 9, device=cuda, dtype=torch.bfloat16), **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        correlation_1d_cuda(nchw, nchw.cpu(), **kw)
+    tall = torch.zeros(1, 1, 1, 1, device=cuda).expand(2**15, 1, 2**15, 1)  # N*H = 2**30: 32-bit work items
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        correlation_1d_cuda(tall, tall, **kw)
     assert (correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches) == before
+
+
+def test_correlation_1d_runs_one_device_kernel_each_way(cuda):
+    """On contiguous NCHW maps, one correlation_1d forward and its backward
+    (both gradients) each run exactly one device kernel: no layout copy,
+    no transpose, no cast (under torch.profiler's CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    f1, f2, grad = _corr1d_inputs(cuda, torch.float32, 2, 128, 4, 240, 40, 1, -1, seed=12)
+    a, b = f1.requires_grad_(True), f2.requires_grad_(True)
+    kw = _corr1d_kw(40, 1, -1)
+    out = correlation_1d(a, b, **kw)  # warm-up: the build and the first launch
+    torch.autograd.grad(out, (a, b), grad)
+    torch.cuda.synchronize()
+
+    def device_kernels(prof):
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+        out = correlation_1d(a, b, **kw)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        torch.autograd.grad(out, (a, b), grad)
+        torch.cuda.synchronize()
+    fwd_names, bwd_names = device_kernels(fwd), device_kernels(bwd)
+    assert len(fwd_names) == 1 and "correlation1d_kernel" in fwd_names[0], fwd_names
+    assert len(bwd_names) == 1 and "correlation1d_backward_kernel" in bwd_names[0], bwd_names
+
+
+# Configurations outside the kernels' (multiply, k 1, stride1 1, pad ==
+# md), as tests/test_torch_ops.py's GENERAL_CONFIGS: the plain versions on
+# the card, held to the CPU
+GENERAL_CONFIGS = {
+    "k3": dict(max_displacement=4, kernel_size=3, stride1=1, stride2=1, pad=5),
+    "stride1-2": dict(max_displacement=4, kernel_size=1, stride1=2, stride2=2, pad=4),
+    "subtract": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=1, pad=4, multiply=False),
+    "pad-below-md": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=2, pad=2),
+}
+
+
+@pytest.mark.parametrize("dims", ["2d", "1d"])
+@pytest.mark.parametrize("case", sorted(GENERAL_CONFIGS))
+def test_correlation_general_configs_on_card_match_cpu(cuda, case, dims):
+    """correlation and correlation_1d on the card in a configuration no
+    kernel takes: no kernel launch, and the output and both gradients
+    within 1e-5 x max|ref| of the same call on the CPU (float32 sums in
+    another order)."""
+    kw = dict(GENERAL_CONFIGS[case])
+    if dims == "1d":
+        kw["single_direction"] = {"k3": 0, "stride1-2": -1, "subtract": 1, "pad-below-md": 0}[case]
+    port = correlation if dims == "2d" else correlation_1d
+    g0 = torch.Generator().manual_seed(13)
+    f1, f2 = (torch.randn(2, 6, 9, 17, generator=g0) for _ in range(2))
+    kernels = (correlation_cuda, correlation_backward_cuda, correlation_1d_cuda, correlation_1d_backward_cuda)
+    before = [k.launches for k in kernels]
+    results = []
+    for dev in (cuda, "cpu"):
+        a, b = f1.to(dev).requires_grad_(True), f2.to(dev).requires_grad_(True)
+        out = port(a, b, **kw)
+        grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(14)).to(dev)
+        results.append((out.detach(), *torch.autograd.grad(out, (a, b), grad)))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    for got, ref in zip(*results):
+        assert got.device.type == "cuda" and got.shape == ref.shape
+        _rel_close(got, ref, 1e-5)
 
 
 def test_dispnetc_on_card_launches_the_1d_kernel_once_and_matches_cpu(cuda, no_tf32):

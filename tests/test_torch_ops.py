@@ -17,6 +17,7 @@ from flownet2_tpu.ops.activations import leaky_relu as jax_leaky_relu
 from flownet2_tpu.ops.channel_norm import channel_norm as jax_channel_norm
 from flownet2_tpu.ops.conv import conv2d as jax_conv2d
 from flownet2_tpu.ops.conv import deconv2d_ps as jax_deconv2d_ps
+from flownet2_tpu.ops.correlation import correlation as jax_correlation
 from flownet2_tpu.ops.correlation import correlation_1d as jax_correlation_1d
 from flownet2_tpu.ops.correlation import correlation_1d_auto, correlation_auto
 from flownet2_tpu.ops.pallas.warp import flow_warp_pallas
@@ -400,6 +401,59 @@ def test_correlation_1d_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         correlation_1d_backward_cuda(f, f, torch.zeros(1, 3, 4, 4), **kw)
     assert (correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches) == before
+
+
+def test_correlation_1d_plain_matches_jax_at_dispnet_width(rng):
+    """What the card's 1-D kernels are held to, at DispNetC's real channel
+    count and a real feature width (1x128x2x240, md 40, single_direction
+    -1): correlation_1d_plain against correlation_1d_auto, and
+    correlation_1d_backward_plain against jax.vjp of it; atol 1e-5 of
+    max|ref| (float32 channel sums in another order)."""
+    kw = dict(max_displacement=40, kernel_size=1, stride1=1, stride2=1, pad=40, single_direction=-1)
+    f1, f2 = _corr1d_inputs(rng, (1, 2, 240, 128))
+    out, vjp = jax.vjp(lambda a, b: correlation_1d_auto(a, b, **kw), jnp.asarray(f1), jnp.asarray(f2))
+    got = nhwc(correlation_1d_plain(nchw(f1), nchw(f2), **kw))
+    assert got.shape == out.shape == (1, 2, 240, 41)
+    np.testing.assert_allclose(got, np.asarray(out), atol=1e-5 * np.abs(np.asarray(out)).max())
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    refs = [np.asarray(v) for v in vjp(jnp.asarray(g))]
+    for got, ref in zip(correlation_1d_backward_plain(nchw(f1), nchw(f2), nchw(g), **kw), refs):
+        np.testing.assert_allclose(nhwc(got), ref, atol=1e-5 * np.abs(ref).max())
+
+
+# Configurations outside the kernels' (multiply, k 1, stride1 1, pad ==
+# md): the dispatchers send them to the plain versions on the card as on
+# the CPU (tests/test_torch_gpu.py holds the card to the CPU on the same).
+GENERAL_CONFIGS = {
+    "k3": dict(max_displacement=4, kernel_size=3, stride1=1, stride2=1, pad=5),
+    "stride1-2": dict(max_displacement=4, kernel_size=1, stride1=2, stride2=2, pad=4),
+    "subtract": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=1, pad=4, multiply=False),
+    "pad-below-md": dict(max_displacement=4, kernel_size=1, stride1=1, stride2=2, pad=2),
+}
+
+
+@pytest.mark.parametrize("dims", ["2d", "1d"])
+@pytest.mark.parametrize("case", sorted(GENERAL_CONFIGS))
+def test_correlation_general_configs_match_jax(rng, case, dims):
+    """correlation and correlation_1d through their dispatchers, forward and
+    both gradients by autograd, against the JAX package's general scans
+    (correlation, correlation_1d) and jax.vjp of them; atol 1e-5 of
+    max|ref|."""
+    kw = dict(GENERAL_CONFIGS[case])
+    if dims == "1d":
+        kw["single_direction"] = {"k3": 0, "stride1-2": -1, "subtract": 1, "pad-below-md": 0}[case]
+    port, ref_fn = (correlation, jax_correlation) if dims == "2d" else (correlation_1d, jax_correlation_1d)
+    f1 = rng.standard_normal((2, 9, 17, 6)).astype(np.float32)
+    f2 = rng.standard_normal((2, 9, 17, 6)).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b: ref_fn(a, b, **kw), jnp.asarray(f1), jnp.asarray(f2))
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    a, b = nchw(f1).requires_grad_(True), nchw(f2).requires_grad_(True)
+    got = port(a, b, **kw)
+    grads = torch.autograd.grad(got, (a, b), nchw(g))
+    for x, ref in zip((got.detach(), *grads), (out, *vjp(jnp.asarray(g)))):
+        ref = np.asarray(ref)
+        assert nhwc(x).shape == ref.shape
+        np.testing.assert_allclose(nhwc(x), ref, atol=1e-5 * np.abs(ref).max())
 
 
 # -- Resample, channel norm, leaky ReLU --------------------------------------
