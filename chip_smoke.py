@@ -35,6 +35,17 @@ card against CPU), then drives the port's paths with seeded random weights:
   ``cli.train`` CLI with a resume; then DispNetC ``Solver`` steps at the
   768x384 b4 FlyingThings3D crop on synthetic left/right/disparity batches
   (one 1-D forward and one backward a step), one step card against CPU;
+- Caffe weights: FlowNet2's seeded weights written by the port's exporter
+  as a merged ``.caffemodel`` and ``.caffemodel.h5`` and as an ``.npz``,
+  each through the ``run_flownet`` CLI at FlyingChairs' 512x384 (the three
+  ``.flo`` files equal), and a standalone FlowNetC ``.caffemodel`` through
+  ``FlowRunner`` at 448x320 b8 against its ``.npz``;
+- training from packed records: 16 synthetic FlyingChairs pairs packed by
+  ``cli.convert_dataset``, ``cli.train`` of FlowNetC on them and of
+  DispNetC on a disparity ``.flowrec`` of FlyingThings3D-size pairs (in
+  this process, so their launches are counted), a transport batch's loss
+  against its float form's, and a step on a card-resident batch against
+  one fed from ``BatchLoader``;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -53,10 +64,13 @@ Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -84,6 +98,7 @@ DISP_TRAIN_N, DISP_TRAIN_H, DISP_TRAIN_W = 4, 384, 768
 CORR1D = dict(max_displacement=40, kernel_size=1, stride1=1, stride2=1, pad=40, single_direction=-1)
 CORR1D_SHAPE = (DISP_N, 128, DISP_H // 4, DISP_W // 4)  # 4x128x144x240
 CORR1D_KITTI_SHAPE = (1, 128, 384 // 4, 1280 // 4)  # 1x128x96x320, KITTI's widest row
+CHAIRS_FRAME = (384, 512)  # FlyingChairs' frames, which [weights] and [records] read
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, dense bfloat16 on the tensor cores, and device memory
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -1260,14 +1275,14 @@ def random_texture(rng: np.random.Generator):
     return texture
 
 
-def write_chairs(root: str, n: int) -> None:
-    """n FlyingChairs-layout pairs at HxW: a seeded texture, the second
+def write_chairs(root: str, n: int, h: int = H, w: int = W) -> None:
+    """n FlyingChairs-layout pairs at hxw: a seeded texture, the second
     frame sampled from it along a smooth known flow, and that flow as -gt.flo
     (frame 1 at x + flow(x) shows what frame 0 shows at x)."""
     from flownet2_tpu_torch.core.flow_io import write_flo, write_ppm
 
     rng = np.random.default_rng(SEED + 4)
-    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
     for i in range(n):
         texture = random_texture(rng)
         amp, (fx, fy), (px, py) = rng.uniform(2, 12, 2), rng.uniform(0.005, 0.02, 2), rng.uniform(0, 6.28, 2)
@@ -1412,6 +1427,249 @@ def phase_train(dev: torch.device, card: str, kernels: dict) -> dict:
     return timings
 
 
+def nested(flat: dict) -> dict:
+    """Flat ``a/b/w`` weights -> {"a": {"b": {"w": ...}}}, as the exporters take them."""
+    out: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
+def flo_agreement(got: np.ndarray, ref: np.ndarray, what: str) -> str:
+    """Equal .flo contents, bit for bit; where a kernel route is not bitwise
+    deterministic, mean EPE <= 1e-6 px, with the reason printed."""
+    check(got.shape == ref.shape and np.isfinite(got).all(), f"{what}: shape {got.shape} or finiteness")
+    diff = float(np.abs(got - ref).max())
+    if diff == 0:
+        return "max abs difference 0"
+    epe = float(np.sqrt(((got - ref) ** 2).sum(-1)).mean())
+    print(f"[weights] {what}: max abs difference {diff:.3g}, not 0: cuDNN's default algorithms are not bitwise "
+          f"deterministic (cudnn.deterministic is off, as a user runs); mean EPE {epe:.3g} px (limit 1e-6)")
+    check(epe <= 1e-6, f"{what}: mean EPE {epe} > 1e-6")
+    return f"mean EPE {epe:.3g} px"
+
+
+def phase_weights(dev: torch.device, card: str) -> None:
+    """Caffe weights through the port: seeded FlowNet2 weights written by the
+    port's exporter as a merged .caffemodel and .caffemodel.h5 and as an
+    .npz, each run through the run_flownet CLI on the card at FlyingChairs'
+    512x384 (three equal .flo files); a standalone FlowNetC .caffemodel
+    through FlowRunner at 448x320 b8 against its .npz (one correlation
+    launch each)."""
+    from flownet2_tpu_torch.checkpoint import flatten_params, init_params, load_params, save_params
+    from flownet2_tpu_torch.core.flow_io import read_flo, write_ppm
+    from flownet2_tpu_torch.inference import FlowRunner
+    from flownet2_tpu_torch.models.export_caffe import (
+        export_caffemodel,
+        export_caffemodel_merged,
+        export_caffemodel_merged_h5,
+    )
+    from flownet2_tpu_torch.models.import_caffe import import_caffemodel
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    try:
+        flat = init_params("flownet2", seed=SEED)
+        files = {ext: os.path.join(tmp, "FlowNet2" + ext) for ext in (".caffemodel", ".caffemodel.h5", ".npz")}
+        t0 = time.perf_counter()
+        export_caffemodel_merged(nested(flat), files[".caffemodel"])
+        export_caffemodel_merged_h5(nested(flat), files[".caffemodel.h5"])
+        save_params(files[".npz"], flat)
+        written = time.perf_counter() - t0
+        imports = []
+        for ext in (".caffemodel", ".caffemodel.h5"):
+            t0 = time.perf_counter()
+            got = flatten_params(import_caffemodel(files[ext], "flownet2"))
+            imports.append(f"{ext} {time.perf_counter() - t0:.2f} s")
+            check(got.keys() == flat.keys() and all(np.array_equal(got[k], flat[k]) for k in flat),
+                  f"{ext}: the import differs from the exported weights")
+        sizes = ", ".join(f"{e} {os.path.getsize(f) / 1e6:.1f} MB" for e, f in files.items())
+        print(f"[weights] FlowNet2 seeded weights: {sizes} (written in {written:.1f} s); import {', '.join(imports)}, "
+              "equal to the exported weights")
+
+        fh, fw = CHAIRS_FRAME
+        img0, img1 = synthetic_pairs(1, fh, fw)
+        a, b = os.path.join(tmp, "a.ppm"), os.path.join(tmp, "b.ppm")
+        write_ppm(a, img0[0].astype(np.uint8))
+        write_ppm(b, img1[0].astype(np.uint8))
+        flows = {}
+        for ext, path in files.items():
+            out = os.path.join(tmp, f"out{ext}.flo")
+            cmd = [sys.executable, "-m", "flownet2_tpu_torch.cli.run_flownet", path, "flownet2", a, b, out,
+                   "--gpu", "0"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"run_flownet {ext} exit {proc.returncode}: {proc.stderr[-2000:]}")
+            flows[ext] = read_flo(out)
+            print(f"[weights] run_flownet FlowNet2{ext} flownet2 a.ppm b.ppm out.flo --gpu 0 ({fw}x{fh}): "
+                  f"{time.perf_counter() - t0:.1f} s with start-up, flow {flows[ext].shape}")
+        for ext in (".caffemodel", ".caffemodel.h5"):
+            print(f"[weights] .flo from {ext} vs from .npz: {flo_agreement(flows[ext], flows['.npz'], ext)}")
+
+        c_flat = init_params("flownetc", seed=SEED)
+        c_model, c_npz = os.path.join(tmp, "FlowNet2-C.caffemodel"), os.path.join(tmp, "FlowNet2-C.npz")
+        export_caffemodel(nested(c_flat), c_model, bgr_slots={"conv1": 1})
+        save_params(c_npz, c_flat)
+        i0, i1 = synthetic_pairs(N)
+        flows = {}
+        for label, params in (("caffemodel", import_caffemodel(c_model, "flownetc")), ("npz", load_params(c_npz))):
+            runner = FlowRunner("flownetc", params, device=dev)
+            reset_inference_counts()
+            flows[label] = runner.batch(i0, i1)
+            got = inference_counts()
+            expected = dict(flow_warp=0, correlation=1, head_conv=0, fusion_head=0, correlation_1d=0)
+            check(got == expected, f"FlowNetC {label}: launches {got}, expected {expected}")
+        agreement = flo_agreement(flows["caffemodel"], flows["npz"], "flownetc")
+        print(f"[weights] FlowRunner('flownetc') {W}x{H} b{N} on FlowNet2-C.caffemodel "
+              f"({os.path.getsize(c_model) / 1e6:.1f} MB) vs .npz: {agreement}; one correlation launch each")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_cli_in_process(argv: list, counters: tuple) -> tuple[str, tuple]:
+    """Run ``cli.train`` in this process, so its kernel launches can be
+    counted: (its standard output, the launches of ``counters``)."""
+    from flownet2_tpu_torch.cli.train import main as train_main
+
+    for k in counters:
+        k.launches = 0
+    handlers = signal.getsignal(signal.SIGINT), signal.getsignal(signal.SIGHUP)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_main(argv)
+    finally:
+        signal.signal(signal.SIGINT, handlers[0])
+        signal.signal(signal.SIGHUP, handlers[1])
+    check(rc == 0, f"cli.train {' '.join(argv)}: exit {rc}")
+    return out.getvalue(), tuple(k.launches for k in counters)
+
+
+def record_step_times(solver, loader, dev, n: int) -> tuple[float, float]:
+    """(ms of one step on a card-resident batch by CUDA events, ms a step fed
+    from the loader by the host clock over ``n`` steps, uploads included)."""
+    resident = {k: torch.as_tensor(v, device=dev) for k, v in next(loader).items()}
+    device_ms = cuda_ms(lambda: solver.step(resident), warmup=2, runs=5)
+    solver.step(next(loader))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        solver.step(next(loader))
+    torch.cuda.synchronize()
+    return device_ms, (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_records(dev: torch.device, card: str) -> dict:
+    """Training from packed records: 16 synthetic FlyingChairs pairs at
+    512x384 packed by cli.convert_dataset into a .flowrec; cli.train of
+    FlowNetC on it (3 steps at 448x320 b8, one correlation forward and one
+    backward a step); one Solver step on the transport batch (uint8 images,
+    int16 flow) beside the same samples in float form (losses rtol 1e-6:
+    the decode is exact); a disparity .flowrec of FlyingThings3D-size
+    960x540 pairs and cli.train of DispNetC on it (3 steps at 768x384 b4,
+    one 1-D forward and one backward a step); ms a step on a card-resident
+    batch and fed from the loader."""
+    from flownet2_tpu_torch.data import BatchLoader, FlowRecordReader, FlowRecordWriter
+    from flownet2_tpu_torch.ops.correlation import (
+        correlation_1d_backward_cuda,
+        correlation_1d_cuda,
+        correlation_backward_cuda,
+        correlation_cuda,
+    )
+    from flownet2_tpu_torch.ops.warp import flow_warp_cuda
+    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import dispnet_c_loss, flownet_c_loss
+
+    counters = (flow_warp_cuda, correlation_cuda, correlation_backward_cuda, correlation_1d_cuda,
+                correlation_1d_backward_cuda)
+    sched = FLOWNET_SCHEDULES["S_long"]
+    config = SolverConfig(solver_type="adam", lr_policy=sched["policy"], base_lr=sched["base_lr"],
+                          gamma=sched["gamma"], stepvalues=sched["stepvalues"], max_iter=sched["max_iter"],
+                          momentum=0.9, momentum2=0.999)
+    timings = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    try:
+        chairs, rec = os.path.join(tmp, "chairs"), os.path.join(tmp, "chairs.flowrec")
+        os.makedirs(chairs)
+        write_chairs(chairs, 16, *CHAIRS_FRAME)
+        cmd = [sys.executable, "-m", "flownet2_tpu_torch.cli.convert_dataset", rec, "--dataset", "flyingchairs",
+               "--data-root", chairs]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0 and "wrote 16 records" in proc.stdout,
+              f"convert_dataset exit {proc.returncode}: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+        print(f"[records] cli.convert_dataset chairs.flowrec --dataset flyingchairs: 16 pairs at "
+              f"{CHAIRS_FRAME[1]}x{CHAIRS_FRAME[0]}, {os.path.getsize(rec) / 1e6:.1f} MB")
+
+        argv = ["--model", "flownetc", "--dataset", "flowrec", "--data-root", rec, "--no-augment", "--batch", str(N),
+                "--crop", f"{H}x{W}", "--max-iter", "3", "--display", "1", "--snapshot-dir",
+                os.path.join(tmp, "snaps_c"), "--gpu", "0"]
+        out, got = train_cli_in_process(argv, counters)
+        check("Iteration 3, loss" in out and os.path.exists(os.path.join(tmp, "snaps_c", "iter_0000003.npz")),
+              f"cli.train flownetc: {out[-1000:]}")
+        check(got == (0, 3, 3, 0, 0), f"cli.train flownetc: launches (warp, corr, corr bwd, 1-D, 1-D bwd) {got}, "
+              "expected (0, 3, 3, 0, 0)")
+        print(f"[records] cli.train --model flownetc --dataset flowrec --no-augment --batch {N} --crop {H}x{W} "
+              f"--max-iter 3 --gpu 0: launches (warp, corr, corr bwd, 1-D, 1-D bwd) {got}; "
+              f"{out.strip().splitlines()[-1]}")
+
+        torch.backends.cudnn.deterministic = True
+        losses, nbytes = {}, {}
+        for transport in (True, False):
+            loader = BatchLoader(FlowRecordReader(rec, transport=transport), N, crop=(H, W), shuffle_seed=None,
+                                 num_threads=1, epochs=1)
+            batch = next(iter(loader))
+            check(batch["flow"].dtype == (np.int16 if transport else np.float32), f"flow dtype {batch['flow'].dtype}")
+            nbytes[transport] = sum(v.nbytes for v in batch.values())
+            losses[transport] = Solver(config, flownet_c_loss, _net("flownetc"), device=dev).step(batch)[0].item()
+        torch.backends.cudnn.deterministic = False
+        rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        print(f"[records] one FlowNetC step on the card, transport batch (uint8, int16; {nbytes[True] / 1e6:.1f} MB "
+              f"uploaded) vs its float form ({nbytes[False] / 1e6:.1f} MB): loss {losses[True]:.9g} vs "
+              f"{losses[False]:.9g} (rel {rel:.3g}, limit 1e-6)")
+        check(rel <= 1e-6, f"transport vs float loss rel {rel}")
+
+        solver = Solver(config, flownet_c_loss, _net("flownetc"), device=dev)
+        loader = iter(BatchLoader(FlowRecordReader(rec, transport=True), N, crop=(H, W), shuffle_seed=SEED))
+        device_ms, fed_ms = record_step_times(solver, loader, dev, 8)
+        timings["flownetc records"] = dict(ms=device_ms, fed_ms=fed_ms)
+        print(f"[times] train step flownetc f32 {W}x{H} b{N} from .flowrec: {device_ms:.3f} ms/step on a "
+              f"card-resident batch, {fed_ms:.3f} ms/step fed from BatchLoader ({card})")
+        del solver, loader
+
+        disp_rec = os.path.join(tmp, "disparity.flowrec")
+        dh, dw = DISP_FRAME
+        with FlowRecordWriter(disp_rec) as w:
+            for i in range(2):
+                b = stereo_batch(2, dh, dw, SEED + 40 + i)
+                for j in range(2):
+                    w.write(b["img0"][j].astype(np.uint8), b["img1"][j].astype(np.uint8), b["flow"][j])
+        argv = ["--model", "dispnetc", "--dataset", "flowrec", "--data-root", disp_rec, "--no-augment", "--batch",
+                str(DISP_TRAIN_N), "--crop", f"{DISP_TRAIN_H}x{DISP_TRAIN_W}", "--max-iter", "3", "--display", "1",
+                "--snapshot-dir", os.path.join(tmp, "snaps_d"), "--gpu", "0"]
+        out, got = train_cli_in_process(argv, counters)
+        check("Iteration 3, loss" in out and os.path.exists(os.path.join(tmp, "snaps_d", "iter_0000003.npz")),
+              f"cli.train dispnetc: {out[-1000:]}")
+        check(got == (0, 0, 0, 3, 3), f"cli.train dispnetc: launches (warp, corr, corr bwd, 1-D, 1-D bwd) {got}, "
+              "expected (0, 0, 0, 3, 3): one 1-D forward and one backward a step")
+        print(f"[records] disparity.flowrec: 4 pairs at {dw}x{dh}, {os.path.getsize(disp_rec) / 1e6:.1f} MB; "
+              f"cli.train --model dispnetc --dataset flowrec --no-augment --batch {DISP_TRAIN_N} --crop "
+              f"{DISP_TRAIN_H}x{DISP_TRAIN_W} --max-iter 3 --gpu 0: launches {got}; {out.strip().splitlines()[-1]}")
+
+        solver = Solver(config, dispnet_c_loss, _net("dispnetc"), device=dev)
+        loader = iter(BatchLoader(FlowRecordReader(disp_rec, transport=True), DISP_TRAIN_N,
+                                  crop=(DISP_TRAIN_H, DISP_TRAIN_W), shuffle_seed=SEED))
+        device_ms, fed_ms = record_step_times(solver, loader, dev, 8)
+        timings["dispnetc records"] = dict(ms=device_ms, fed_ms=fed_ms)
+        print(f"[times] train step dispnetc f32 {DISP_TRAIN_W}x{DISP_TRAIN_H} b{DISP_TRAIN_N} from .flowrec: "
+              f"{device_ms:.3f} ms/step on a card-resident batch, {fed_ms:.3f} ms/step fed from BatchLoader ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return timings
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1419,15 +1677,27 @@ def main() -> int:
     # versions and the card-vs-CPU checks need it)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_build()
-    kernels = phase_kernels(dev, smi)
-    kernels.update(phase_head_kernels(dev, smi))
-    kernels.update(phase_corr1d_kernels(dev, smi))
-    phase_slice(dev, smi, kernels)
-    phase_sintel(dev, smi, kernels)
-    phase_dispnet(dev, smi, kernels)
-    phase_train(dev, smi, kernels)
-    phase_dispnet_train(dev, smi, kernels)
+    seconds, t0 = {}, time.perf_counter()
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return out
+
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, dev, smi)
+    kernels.update(timed("head kernels", phase_head_kernels, dev, smi))
+    kernels.update(timed("1-D kernels", phase_corr1d_kernels, dev, smi))
+    timed("slice", phase_slice, dev, smi, kernels)
+    timed("sintel", phase_sintel, dev, smi, kernels)
+    timed("dispnet", phase_dispnet, dev, smi, kernels)
+    timed("train", phase_train, dev, smi, kernels)
+    timed("dispnet train", phase_dispnet_train, dev, smi, kernels)
+    timed("weights", phase_weights, dev, smi)
+    timed("records", phase_records, dev, smi)
+    print(f"[times] phases (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; "
+          f"all {time.perf_counter() - t0:.1f}")
     order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",
              "fusion_head", "correlation_1d", "correlation_1d_backward")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))

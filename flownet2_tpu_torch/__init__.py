@@ -11,18 +11,24 @@ reference). Module names follow the JAX package:
                    the kernels live in ``csrc/``, built on first use by
                    ``_build``, and each has a plain PyTorch version that
                    serves CPU tensors.
-- ``models``     — FlowNetS / C / SD, the fusion net and the FlowNet2 cascade
-                   as ``nn.Module``s; their apply functions take and return
-                   NHWC like the JAX package, the nets run NCHW inside.
-- ``core``       — numpy-only host helpers: the /64 adapt, ``.flo`` and PPM I/O.
+- ``models``     — FlowNetS / C / SD, the fusion net, the FlowNet2 cascade
+                   and DispNetC as ``nn.Module``s; their apply functions
+                   take and return NHWC like the JAX package, the nets run
+                   NCHW inside; the reference's ``.caffemodel`` /
+                   ``.caffemodel.h5`` import and export.
+- ``core``       — numpy-only host helpers: the /64 adapt, ``.flo``, PPM,
+                   PFM and KITTI's 16-bit PNG I/O, the int16 flow codec,
+                   the HDF5 subset of ``.caffemodel.h5``.
 - ``checkpoint`` — the JAX package's flat ``.npz`` weights to a ``state_dict``,
                    and seeded random weights.
 - ``inference``  — ``FlowRunner``: the /64 adapt, the net, the resize back.
 - ``train``      — LR policies, the Caffe solvers, the training objectives
                    and the ``Solver`` loop.
-- ``data``       — FlyingChairs and Sintel readers, the prefetching loader.
-- ``cli``        — ``run_flownet``, ``run_flownet_many`` and ``train``,
-                   argument-compatible with the JAX CLIs.
+- ``data``       — the FlyingChairs, ChairsSDHom, FlyingThings3D, Sintel and
+                   KITTI layouts, ``.flowrec`` records, LMDB and LevelDB
+                   (numpy only), the prefetching loader.
+- ``cli``        — ``run_flownet``, ``run_flownet_many``, ``train`` and
+                   ``convert_dataset``, argument-compatible with the JAX CLIs.
 
 This package imports neither jax nor the JAX package.
 """

@@ -80,6 +80,20 @@ def params_from_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, np.
     return params
 
 
+def expected_params(model: str) -> dict[str, tuple[int, ...]]:
+    """Every parameter ``model``'s net takes: JAX-layout key -> JAX-layout shape."""
+    if model not in NETS:
+        raise ValueError(f"unknown model {model!r}; choose from {tuple(NETS)}")
+    with torch.device("meta"):
+        net = NETS[model]()
+    out = {}
+    for key, t in net.state_dict().items():
+        *path, leaf = key.split(".")
+        shape = tuple(t.shape)
+        out["/".join(path + [_JAX_LEAVES[leaf]])] = shape[2:] + shape[1::-1] if leaf == "weight" else shape
+    return out
+
+
 def save_params(path: str | os.PathLike, params: dict) -> None:
     """Write JAX-layout parameters (flat or nested) as a flat ``.npz``."""
     np.savez(path, **flatten_params(params))

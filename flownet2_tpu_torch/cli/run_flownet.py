@@ -6,8 +6,10 @@ scripts/run-flownet.py):
     python -m flownet2_tpu_torch.cli.run_flownet <weights> <model> <img0> <img1> <out>
         [--gpu N] [--device DEV] [--dtype float32|bfloat16] [--verbose]
 
-- ``weights``: a flat ``.npz`` written by ``flownet2_tpu.checkpoint.save_params``,
-  or ``random`` for seeded random weights (seed 0);
+- ``weights``: the reference's Caffe weights (``.caffemodel`` binaryproto or
+  ``.caffemodel.h5``, imported by ``models.import_caffe``), a flat ``.npz``
+  in the JAX package's layout (``checkpoint.save_params``), or ``random``
+  for seeded random weights (seed 0);
 - ``model``: flownets|flownetc|flownet2-sd|flownet2-cs|flownet2-css|flownet2|dispnetc, or
   a deploy-template path whose basename names one;
 - ``--gpu N`` runs on ``cuda:N``; ``--device`` names a device instead (``cpu``
@@ -54,16 +56,18 @@ def load_weights(path: str, model: str) -> dict:
     if path == "random":
         return MODEL_INITS[model](seed=0)
     if path.endswith((".caffemodel", ".h5")):
-        raise SystemExit(
-            f"{path}: convert it to .npz first with flownet2_tpu.models.import_caffe "
-            "and flownet2_tpu.checkpoint.save_params"
-        )
+        from flownet2_tpu_torch.models.import_caffe import import_caffemodel
+
+        try:
+            return import_caffemodel(path, model)
+        except ValueError as e:
+            raise SystemExit(f"{path}: {e}") from None
     return load_params(path)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("caffemodel", help="path to weights (.npz) or 'random'")
+    p.add_argument("caffemodel", help="path to weights (.caffemodel, .caffemodel.h5 or .npz) or 'random'")
     p.add_argument("deployproto", help="model name or deploy template path")
     p.add_argument("img0", help="image 0 path")
     p.add_argument("img1", help="image 1 path")

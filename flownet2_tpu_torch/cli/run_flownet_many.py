@@ -45,7 +45,7 @@ def read_jobs(listfile: str) -> list[list[str]]:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("caffemodel", help="path to weights (.npz) or 'random'")
+    p.add_argument("caffemodel", help="path to weights (.caffemodel, .caffemodel.h5 or .npz) or 'random'")
     p.add_argument("deployproto", help="model name or deploy template path")
     p.add_argument("listfile", help="one line per job: img0 img1 out.flo")
     p.add_argument("--gpu", type=int, default=0, help="CUDA device index to use")

@@ -5,23 +5,30 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
     python -m flownet2_tpu_torch.cli.train --model flownetc --dataset flyingchairs
         --data-root DIR --no-augment [--loss KEY] [--schedule S_long] [--base-lr LR]
         [--solver adam] [--batch 8] [--crop 320x448] [--iter-size 1] [--max-iter N]
-        [--weights W.npz] [--snapshot DIR/iter_NNNNNNN] [--snapshot-dir DIR]
+        [--weights W] [--snapshot DIR/iter_NNNNNNN] [--snapshot-dir DIR]
         [--snapshot-interval N] [--display N] [--seed S] [--gpu N | --device cpu]
 
+- ``--dataset``: a layout (flyingchairs, chairssdhom, flyingthings3d,
+  sintel, kitti) or a packed format (flowrec, lmdb, leveldb, or auto to
+  sniff one) at ``--data-root``. ``.flowrec`` records are read in transport
+  mode (uint8 images, int16 flow, decoded on the card by the objective);
+- ``--model dispnetc`` trains on disparity: a disparity ``.flowrec``, or a
+  disparity LMDB / LevelDB (the reference's 3+3+1-channel packing);
 - ``--loss`` picks an objective of ``train.objectives.LOSSES`` (default: the
   model's own); the cascade-stage losses (flownet2-s1, -s2, -fusion,
   -c-stage, -sd-stage) train one sub-net of ``--model flownet2``;
 - ``--weights`` copies the layers whose names and shapes match from a flat
-  ``.npz``; ``--snapshot`` resumes weights, optimizer state and iteration;
+  ``.npz`` or the reference's ``.caffemodel`` / ``.caffemodel.h5`` (whose
+  import must fit the model's net); ``--snapshot`` resumes weights,
+  optimizer state and iteration;
 - ``--gpu N`` trains on ``cuda:N``; ``--device`` names a device instead
   (``cpu`` for tests). Without a card and without ``--device`` the CLI
   exits with an error: it never falls back to the CPU.
 
 Not yet in the port, each refused with a message: augmentation (a run
 without ``--no-augment``), more than one card (``--gpu all`` or a list),
-``--device-cache``, ``--recompute-mean``, ``--write-augmented``,
-``--steps-per-dispatch``, and ``--model dispnetc`` (no disparity reader yet;
-``train.objectives.LOSSES["dispnetc"]`` trains it through ``Solver``).
+``--device-cache``, ``--recompute-mean``, ``--write-augmented`` and
+``--steps-per-dispatch``.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", default="flownets", help="flownets|flownetc|flownet2-sd|flownet2")
     p.add_argument("--loss", default=None, help="objective (train.objectives.LOSSES); default: the model's")
-    p.add_argument("--dataset", default="flyingchairs")
+    p.add_argument("--dataset", default="flyingchairs",
+                   help="flyingchairs|chairssdhom|flyingthings3d|sintel|kitti|flowrec|lmdb|leveldb|auto")
     p.add_argument("--data-root", required=True)
     p.add_argument("--schedule", default="S_long", help="S_long|S_short|S_fine")
     p.add_argument("--base-lr", type=float, default=None, help="override the schedule's base_lr")
@@ -43,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crop", default="320x448", help="HxW training crop")
     p.add_argument("--iter-size", type=int, default=1, help="micro-batches accumulated per iteration")
     p.add_argument("--max-iter", type=int, default=0, help="0: the schedule's")
-    p.add_argument("--weights", default=None, help="finetune from a flat .npz")
+    p.add_argument("--weights", default=None, help="finetune from a flat .npz, .caffemodel or .caffemodel.h5")
     p.add_argument("--snapshot", default=None, help="resume from a snapshot (DIR/iter_NNNNNNN)")
     p.add_argument("--snapshot-dir", default="snapshots")
     p.add_argument("--snapshot-interval", type=int, default=50000)
@@ -68,11 +76,33 @@ def _refuse_unported(args) -> None:
                         ("--steps-per-dispatch", args.steps_per_dispatch)):
         if value:
             raise SystemExit(f"{flag} is not ported to PyTorch yet")
-    if args.model == "dispnetc":
-        raise SystemExit("--model dispnetc trains on disparity, which the PyTorch port cannot read yet "
-                         "(the JAX package reads it from packed records and LMDB)")
     if args.device is None and not args.gpu.isdigit():
         raise SystemExit(f"--gpu {args.gpu}: the PyTorch port trains on one card; pass one index")
+
+
+def _open_dataset(args):
+    """The training set, its items checked to carry what the model learns:
+    1-channel disparity for DispNetC, 2-channel flow for the flow nets."""
+    from flownet2_tpu_torch.data import FlowRecordReader, open_dataset
+    from flownet2_tpu_torch.data.datasets import PACKED_FORMATS
+    from flownet2_tpu_torch.data.lmdb import DISPARITY_ENCODINGS, DISPARITY_SLICE_POINTS
+
+    key = args.dataset.lower().replace("_", "")
+    stereo = args.model == "dispnetc"
+    if stereo and key not in PACKED_FORMATS + ("auto",):
+        raise SystemExit(f"--model dispnetc trains on disparity, which the {args.dataset} layout does not hold; "
+                         "pack it as a disparity .flowrec (cli.convert_dataset) or pass a disparity LMDB or LevelDB")
+    kw = {}
+    if stereo and key in ("lmdb", "leveldb"):
+        kw = dict(slice_points=DISPARITY_SLICE_POINTS, encodings=DISPARITY_ENCODINGS)
+    dataset = open_dataset(args.dataset, args.data_root, **kw)
+    if isinstance(dataset, FlowRecordReader):
+        dataset.transport = True  # uint8 / int16 to the card, decoded there
+    channels = dataset[0]["flow"].shape[-1]
+    if channels != (1 if stereo else 2):
+        raise SystemExit(f"{args.data_root}: items carry {channels}-channel ground truth; --model {args.model} "
+                         f"trains on {'1-channel disparity' if stereo else '2-channel flow'}")
+    return dataset
 
 
 def _device(args) -> str:
@@ -91,8 +121,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
 
-    from flownet2_tpu_torch.checkpoint import init_params, load_into, load_params
-    from flownet2_tpu_torch.data import BatchLoader, open_dataset
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.cli.run_flownet import load_weights
+    from flownet2_tpu_torch.data import BatchLoader
     from flownet2_tpu_torch.models import NETS, FlowNet2
     from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
     from flownet2_tpu_torch.train.objectives import LOSSES, STAGE_LOSS_KEY, trainable_module
@@ -110,6 +141,7 @@ def main(argv=None) -> int:
                          "objectives take --model flownet2, the others their own model")
     crop_h, crop_w = (int(v) for v in args.crop.split("x"))
     device = _device(args)
+    dataset = _open_dataset(args)
 
     sched = dict(FLOWNET_SCHEDULES[args.schedule])
     max_iter = args.max_iter or sched["max_iter"]
@@ -133,11 +165,10 @@ def main(argv=None) -> int:
     )
     solver.install_signal_handlers()
     if args.weights:
-        solver.copy_weights_from(load_params(args.weights))
+        solver.copy_weights_from(load_weights(args.weights, args.model))
     if args.snapshot:
         solver.restore(args.snapshot)
 
-    dataset = open_dataset(args.dataset, args.data_root)
     loader = BatchLoader(dataset, args.batch * args.iter_size, crop=(crop_h, crop_w), shuffle_seed=args.seed)
     batch_hook = None
     if args.iter_size > 1:

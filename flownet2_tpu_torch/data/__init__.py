@@ -1,7 +1,37 @@
-"""Data: optical-flow datasets read from files, and the prefetching loader
-(flownet2_tpu/data, without its device cache and packed-record readers)."""
+"""Data: optical-flow datasets read from files, the packed formats (``.flowrec``
+records, LMDB and LevelDB, read without their native libraries), and the
+prefetching loader (flownet2_tpu/data, without its device cache and the
+mean recompute, which wait for augmentation)."""
 
-from flownet2_tpu_torch.data.datasets import FlowPairDataset, FlowSample, FlyingChairs, Sintel, open_dataset
+from flownet2_tpu_torch.data.datasets import (
+    KITTI,
+    ChairsSDHom,
+    FlowPairDataset,
+    FlowSample,
+    FlyingChairs,
+    FlyingThings3D,
+    Sintel,
+    open_dataset,
+)
+from flownet2_tpu_torch.data.leveldb import LevelDBFlowDataset, LevelDBReader
+from flownet2_tpu_torch.data.lmdb import LmdbFlowDataset, LmdbReader
 from flownet2_tpu_torch.data.pipeline import BatchLoader
+from flownet2_tpu_torch.data.records import FlowRecordReader, FlowRecordWriter
 
-__all__ = ["BatchLoader", "FlowPairDataset", "FlowSample", "FlyingChairs", "Sintel", "open_dataset"]
+__all__ = [
+    "KITTI",
+    "BatchLoader",
+    "ChairsSDHom",
+    "FlowPairDataset",
+    "FlowRecordReader",
+    "FlowRecordWriter",
+    "FlowSample",
+    "FlyingChairs",
+    "FlyingThings3D",
+    "LevelDBFlowDataset",
+    "LevelDBReader",
+    "LmdbFlowDataset",
+    "LmdbReader",
+    "Sintel",
+    "open_dataset",
+]

@@ -2,10 +2,18 @@
 
 Each net's ``*_apply`` function takes and returns NHWC, like the JAX
 package's. Layer names follow the JAX parameter names, so the JAX package's
-weights load through ``flownet2_tpu_torch.checkpoint``.
+weights load through ``flownet2_tpu_torch.checkpoint``, and so do the
+reference's Caffe weights through ``import_caffe`` (``export_caffe`` writes
+them back).
 """
 
 from flownet2_tpu_torch.models.dispnet import DispNetC, dispnet_c_apply
+from flownet2_tpu_torch.models.export_caffe import (
+    export_caffemodel,
+    export_caffemodel_h5,
+    export_caffemodel_merged,
+    export_caffemodel_merged_h5,
+)
 from flownet2_tpu_torch.models.flownet2 import (
     DIV_FLOW,
     FlowNet2,
@@ -18,6 +26,7 @@ from flownet2_tpu_torch.models.flownet_c import FlowNetC, flownet_c_apply
 from flownet2_tpu_torch.models.flownet_s import FlowNetS, flownet_s_apply
 from flownet2_tpu_torch.models.flownet_sd import FlowNetSD, flownet_sd_apply
 from flownet2_tpu_torch.models.fusion import FlowNetFusion, fusion_apply
+from flownet2_tpu_torch.models.import_caffe import import_caffemodel, parse_caffemodel, parse_caffemodel_h5
 
 # model name (as the CLI takes it) -> net; FlowNet2-CS and -CSS carry the
 # whole FlowNet2 weight set, as in the JAX package
@@ -41,6 +50,10 @@ __all__ = [
     "FlowNetS",
     "FlowNetSD",
     "dispnet_c_apply",
+    "export_caffemodel",
+    "export_caffemodel_h5",
+    "export_caffemodel_merged",
+    "export_caffemodel_merged_h5",
     "flownet2_apply",
     "flownet2_cs_apply",
     "flownet2_css_apply",
@@ -48,5 +61,8 @@ __all__ = [
     "flownet_s_apply",
     "flownet_sd_apply",
     "fusion_apply",
+    "import_caffemodel",
     "normalize_images",
+    "parse_caffemodel",
+    "parse_caffemodel_h5",
 ]

@@ -20,6 +20,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from flownet2_tpu_torch.core.codec import flow_as_f32
 from flownet2_tpu_torch.models.common import to_nchw
 from flownet2_tpu_torch.models.flownet2 import (
     DIV_FLOW,
@@ -34,12 +35,15 @@ from flownet2_tpu_torch.ops.losses import l1_loss, multiscale_l1_loss
 
 def _batch_views(batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """NHWC batch -> NCHW img0, img1 (floating dtype kept, so a bf16 batch
-    trains in bf16; integer images become float32) and float32 flow."""
+    trains in bf16; integer images become float32) and float32 flow. A
+    batch may come in the transport domain of the packed records (uint8
+    images, int16 fixed-point flow): the flow decodes here, on the batch's
+    device, as value/32 with SHRT_MAX -> NaN (``core/codec.flow_as_f32``)."""
 
     def as_float(x):
         return x if x.is_floating_point() else x.float()
 
-    return to_nchw(as_float(batch["img0"])), to_nchw(as_float(batch["img1"])), to_nchw(batch["flow"].float())
+    return to_nchw(as_float(batch["img0"])), to_nchw(as_float(batch["img1"])), to_nchw(flow_as_f32(batch["flow"]))
 
 
 class _BoundLoss(nn.Module):

@@ -158,10 +158,13 @@ def test_cli_rejects_unported_and_unknown_models(tmp_path, pair, argv_model, mes
 
 
 def test_cli_refuses_caffemodel_with_hint(tmp_path, pair):
+    """The CLI imports Caffe weights itself now; a file that holds none of the
+    net's layers is refused with the keys it lacks, and no .flo is written."""
     weights = tmp_path / "w.caffemodel"
     weights.write_bytes(b"")
-    with pytest.raises(SystemExit, match="convert it to .npz"):
+    with pytest.raises(SystemExit, match="do not fit the flownets net: 46 missing: conv1/b, conv1/w"):
         main([str(weights), "flownets", *pair, str(tmp_path / "out.flo"), "--device", "cpu"])
+    assert not (tmp_path / "out.flo").exists()
 
 
 @pytest.mark.parametrize(

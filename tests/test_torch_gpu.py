@@ -997,3 +997,76 @@ def test_dispnetc_train_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
     whole, median = _grad_errors(grads, ref_grads)
     assert whole <= 1e-3 and median <= 1e-3, f"relative L2 of all {whole:.3g}, median {median:.3g}"
+
+
+# -- the packed formats and Caffe weights on the card ------------------------------------------------
+
+
+def test_transport_flow_decodes_on_the_card_as_on_the_cpu(cuda):
+    """int16 transport flow decoded on the card: value/32, SHRT_MAX as NaN,
+    equal to the CPU's decode bit for bit."""
+    from flownet2_tpu_torch.core.codec import flow_as_f32
+
+    rng = np.random.default_rng(15)
+    enc = rng.integers(-32768, 32768, (4, 96, 128, 2)).astype(np.int16)
+    enc[0, :4, :4] = 32767
+    got = flow_as_f32(torch.from_numpy(enc).to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy(), flow_as_f32(torch.from_numpy(enc)).numpy())
+    assert got[0, :4, :4].isnan().all() and not got[1].isnan().any()
+
+
+def test_run_flownet_on_card_from_a_caffemodel_matches_the_npz(cuda, no_tf32, tmp_path):
+    """FlowNet2 through run_flownet on cuda:0, its weights once as a merged
+    .caffemodel and once as an .npz: the same .flo, bit for bit (cuDNN's
+    deterministic algorithms)."""
+    from flownet2_tpu_torch.checkpoint import save_params
+    from flownet2_tpu_torch.cli.run_flownet import main as run_flownet
+    from flownet2_tpu_torch.core.flow_io import read_flo, write_ppm
+    from flownet2_tpu_torch.models.export_caffe import export_caffemodel_merged
+
+    flat = init_params("flownet2", seed=16)
+    tree: dict = {}
+    for key, v in flat.items():
+        sub, layer, leaf = key.split("/")
+        tree.setdefault(sub, {}).setdefault(layer, {})[leaf] = v
+    export_caffemodel_merged(tree, str(tmp_path / "w.caffemodel"))
+    save_params(str(tmp_path / "w.npz"), flat)
+    rng = np.random.default_rng(16)
+    pair = []
+    for i in range(2):
+        pair.append(str(tmp_path / f"img{i}.ppm"))
+        write_ppm(pair[-1], rng.integers(0, 256, (130, 200, 3), dtype=np.uint8))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("w.caffemodel", "w.npz"):
+            out = str(tmp_path / f"{name}.flo")
+            assert run_flownet([str(tmp_path / name), "flownet2", *pair, out, "--gpu", "0"]) == 0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = read_flo(tmp_path / "w.caffemodel.flo"), read_flo(tmp_path / "w.npz.flo")
+    assert a.shape == (130, 200, 2) and np.isfinite(a).all()
+    np.testing.assert_array_equal(a, b)
+
+
+def test_train_cli_dispnetc_step_from_disparity_records(cuda, tmp_path):
+    """One cli.train step of DispNetC on the card from a disparity .flowrec:
+    one launch each of the 1-D forward and backward, a finite loss, a
+    snapshot."""
+    from flownet2_tpu_torch.cli.train import main as train_main
+    from flownet2_tpu_torch.data import FlowRecordWriter
+
+    rng = np.random.default_rng(17)
+    rec = str(tmp_path / "disp.flowrec")
+    with FlowRecordWriter(rec) as w:
+        for _ in range(2):
+            img = rng.integers(0, 256, (130, 260, 3), dtype=np.uint8)
+            w.write(img, np.roll(img, -5, axis=1), np.full((130, 260), -5.0, np.float32))
+    before = correlation_1d_cuda.launches, correlation_1d_backward_cuda.launches
+    assert train_main(["--model", "dispnetc", "--dataset", "flowrec", "--data-root", rec, "--no-augment",
+                       "--batch", "2", "--crop", "128x256", "--max-iter", "1", "--gpu", "0",
+                       "--snapshot-dir", str(tmp_path / "snaps")]) == 0
+    assert (correlation_1d_cuda.launches - before[0], correlation_1d_backward_cuda.launches - before[1]) == (1, 1)
+    with np.load(tmp_path / "snaps" / "iter_0000001.npz") as z:
+        assert all(np.isfinite(z[k]).all() for k in z.files)

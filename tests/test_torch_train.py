@@ -301,8 +301,8 @@ def test_dataset_subsets_and_errors(tmp_path):
     ds = open_dataset("flyingchairs", str(tmp_path))
     assert len(ds.subset_range(1, 2)) == 2
     np.testing.assert_array_equal(ds.permutation(None), np.arange(4))
-    with pytest.raises(ValueError, match="not yet ported"):
-        open_dataset("kitti", str(tmp_path))
+    with pytest.raises(ValueError, match="unknown dataset 'middlebury'"):
+        open_dataset("middlebury", str(tmp_path))
     with pytest.raises(ValueError, match="empty"):
         FlyingChairs(str(tmp_path / "nothing"))
     with pytest.raises(ValueError, match="smaller than crop"):
@@ -457,6 +457,7 @@ def test_train_cli_runs_snapshots_and_resumes(tmp_path, capsys):
     (["--no-augment", "--write-augmented", "x"], "--write-augmented"),
     (["--no-augment", "--steps-per-dispatch", "4"], "--steps-per-dispatch"),
     (["--no-augment", "--device", "cpu", "--loss", "flownet2-s1"], "does not train"),
+    # DispNetC trains from packed disparity records, not from a flow layout
     (["--no-augment", "--device", "cpu", "--model", "dispnetc"], "disparity"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, message):
