@@ -46,6 +46,15 @@ card against CPU), then drives the port's paths with seeded random weights:
   this process, so their launches are counted), a transport batch's loss
   against its float form's, and a step on a card-resident batch against
   one fed from ``BatchLoader``;
+- training augmentation, the paper's recipe: 512x384 FlyingChairs-layout
+  pairs augmented to 448x320 b8 on the card against the CPU (the affine
+  sample on K1, 2 launches a step, no K2), the noise on the card, the
+  augmentation, K1 at its canvas beside ``F.affine_grid`` +
+  ``F.grid_sample`` and the augmented FlowNetC step (f32, bf16) timed
+  beside the unaugmented one, and ``cli.train`` augmented from a transport
+  ``.flowrec`` (``--recompute-mean``, ``--write-augmented``) and with the
+  ``flownet2-sd-sdhom`` loss at its first episode; the black, eigen and
+  shadow transforms on the card against the CPU;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -123,6 +132,33 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 9) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def interleaved_ms(fns, rounds: int = 25, warmup: int = 3) -> list[list[float]]:
+    """The device time of single calls of each of ``fns`` by CUDA events, in
+    turns: ``rounds`` rounds call each once, in order on even rounds and in
+    reverse on odd ones, so a drift of the clocks or of the host's load falls
+    on all alike. One list of times per function."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        for i in range(len(fns)) if r % 2 == 0 else reversed(range(len(fns))):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return times
+
+
+def quartiles(xs) -> str:
+    """``median [q1, q3]`` of ``xs``, in ms."""
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return f"{q2:.3f} [{q1:.3f}, {q3:.3f}]"
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS) -> dict:
@@ -1670,6 +1706,267 @@ def phase_records(dev: torch.device, card: str) -> dict:
     return timings
 
 
+def affine_theta(mats: torch.Tensor, src_h: int, src_w: int, out_h: int, out_w: int) -> torch.Tensor:
+    """``F.affine_grid``'s (N, 2, 3) theta (align_corners=True) for crop ->
+    source pixel affines (N, 6): normalized crop coordinates to normalized
+    source coordinates."""
+    t = mats.double()
+    sx, sy = (out_w - 1) / 2, (out_h - 1) / 2  # crop pixel = (n + 1) * s
+    kx, ky = 2 / (src_w - 1), 2 / (src_h - 1)  # source n = pixel * k - 1
+    a = torch.stack([t[:, 0] * sx * kx, t[:, 2] * sy * kx, (t[:, 0] * sx + t[:, 2] * sy + t[:, 4]) * kx - 1], dim=1)
+    b = torch.stack([t[:, 1] * sx * ky, t[:, 3] * sy * ky, (t[:, 1] * sx + t[:, 3] * sy + t[:, 5]) * ky - 1], dim=1)
+    return torch.stack([a, b], dim=1).float()
+
+
+def launch_counts(counters) -> tuple:
+    return tuple(k.launches for k in counters)
+
+
+def phase_augment(dev: torch.device, card: str, kernels: dict) -> dict:
+    """The paper's augmented recipe: 16 synthetic 512x384 FlyingChairs-layout
+    pairs to 448x320 b8. The augmented batch (noise 0) on the card against
+    the port on the CPU (images 1e-3 on the 0-255 scale, flow 1e-4 px and
+    the same NaN pattern); the augmented FlowNetC step's launches, counted
+    from 0 just before it (2 of K1, the affine sample of each frame; 0 of
+    K2: the augmentation records no backward); the noise's statistics and
+    its generator on the card; black, eigen and shadow on the card against
+    the CPU (eigen 1e-5, black and shadow 1e-6); times by CUDA events of
+    the augmentation alone, of K1 at its 8x3x384x512 canvas beside its bound and
+    ``F.affine_grid`` + ``F.grid_sample`` at the crop (the library
+    yardstick, timed: its border clamp is not the reference's w-1.05, so it
+    is not compared), of the augmented FlowNetC step f32 and bf16 beside the
+    unaugmented resident one (single steps in turns, and blocks of steps
+    back to back); then cli.train in this process on a transport
+    .flowrec: FlowNetC 3 steps with --recompute-mean 2 --write-augmented,
+    and flownet2-sd-sdhom 2 steps (its Lpq loss at the first episode: the
+    CLI sets no schedule and samples no black augmentation)."""
+    import torch.nn.functional as F
+
+    from flownet2_tpu_torch.data import BatchLoader, FlowRecordWriter, FlyingChairs
+    from flownet2_tpu_torch.data.augment_pipeline import (
+        apply_augmentation_device,
+        make_augmented_loss,
+        make_flownet_augmenter,
+    )
+    from flownet2_tpu_torch.ops.augment import (
+        affine_position_flow,
+        apply_black_augmentation,
+        apply_chromatic_eigen_transform,
+        apply_gaussian_noise,
+        apply_shadow,
+    )
+    from flownet2_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
+    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import flownet_c_loss, with_compute_dtype
+
+    counters = (flow_warp_cuda, flow_warp_backward_cuda, correlation_cuda, correlation_backward_cuda)
+    sh, sw = CHAIRS_FRAME
+    sched = FLOWNET_SCHEDULES["S_long"]
+    config = SolverConfig(solver_type="adam", lr_policy=sched["policy"], base_lr=sched["base_lr"],
+                          gamma=sched["gamma"], stepvalues=sched["stepvalues"], max_iter=sched["max_iter"],
+                          momentum=0.9, momentum2=0.999)
+    timings = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_augment_")
+    try:
+        chairs = os.path.join(tmp, "chairs")
+        os.makedirs(chairs)
+        write_chairs(chairs, 2 * N, sh, sw)
+        loader = iter(BatchLoader(FlyingChairs(chairs), N, shuffle_seed=SEED, num_threads=1,
+                                  transform=make_flownet_augmenter(H, W)))
+        batch = next(loader)
+        check(batch["img0"].shape == (N, sh, sw, 3) and batch["aug_mat0"].shape == (N, 6),
+              f"augmenting loader batch {batch['img0'].shape}")
+        quiet = dict(batch, aug_noise=np.zeros(N, np.float32), flow=batch["flow"].copy())
+        quiet["flow"][0, :, :, 0] = np.nan  # invalid ground truth: every crop of item 0 samples NaN in u
+        quiet["flow"][1, sh // 3:sh // 2, sw // 3:sw // 2] = np.nan
+
+        def augment_on(device):
+            on = {k: torch.as_tensor(v).to(device) for k, v in quiet.items()}
+            with torch.no_grad():
+                return apply_augmentation_device(on, torch.Generator(device=device).manual_seed(SEED), H, W)
+
+        for k in counters:
+            k.launches = 0
+        got = augment_on(dev)
+        torch.cuda.synchronize()
+        direct = launch_counts(counters)
+        t0 = time.perf_counter()
+        ref = augment_on("cpu")
+        img_err = max((got[k].cpu() - ref[k]).abs().max().item() for k in ("img0", "img1"))
+        flow, ref_flow = got["flow"].cpu(), ref["flow"]
+        same_nan = torch.equal(flow.isnan(), ref_flow.isnan())
+        flow_err = (flow - ref_flow)[~ref_flow.isnan()].abs().max().item()
+        print(f"[augment] {N} pairs {sw}x{sh} -> {W}x{H}, noise 0, card vs the port on the CPU "
+              f"({time.perf_counter() - t0:.1f} s on the CPU): images max abs err {img_err:.3g} on 0-255 (limit "
+              f"1e-3), flow {flow_err:.3g} px (limit 1e-4), NaN pattern {'equal' if same_nan else 'DIFFERENT'} "
+              f"({int(ref_flow.isnan().sum())} NaN values); launches (warp, warp bwd, corr, corr bwd) {direct}")
+        check(got["img0"].shape == (N, 3, H, W) and got["flow"].shape == (N, 2, H, W), "augmented shapes")
+        check(all(torch.isfinite(got[k]).all() for k in ("img0", "img1")), "augmented images not finite")
+        check(img_err <= 1e-3, f"augmented images, card vs CPU: {img_err}")
+        check(same_nan and bool(ref_flow.isnan().any()), "augmented flow: NaN pattern, card vs CPU")
+        check(flow_err <= 1e-4, f"augmented flow, card vs CPU: {flow_err} px")
+        check(direct == (2, 0, 0, 0), f"augmentation launches {direct}, expected (2, 0, 0, 0)")
+        del got, ref
+
+        solver = Solver(config, make_augmented_loss(flownet_c_loss, H, W, seed=SEED), _net("flownetc"), device=dev)
+        for k in counters:
+            k.launches = 0
+        losses = [solver.step(next(loader))[0].item()]
+        first_step = launch_counts(counters)
+        losses += [solver.step(next(loader))[0].item() for _ in range(2)]
+        got = launch_counts(counters)
+        print(f"[augment] augmented flownetc f32 {W}x{H} b{N} from {sw}x{sh}: losses "
+              f"{', '.join(f'{x:.6g}' for x in losses)}; launches (warp, warp bwd, corr, corr bwd) {first_step} in "
+              f"the first step, {got} in 3")
+        check(all(np.isfinite(losses)), "augmented step: loss not finite")
+        check(first_step == (2, 0, 1, 1) and got == (6, 0, 3, 3),
+              f"augmented step launches {first_step} / {got}, expected (2, 0, 1, 1) a step")
+        kernels["flow_warp"]["augment_launches"] = first_step[0]
+        kernels["flow_warp_backward"]["augment_launches"] = first_step[1]
+        del solver
+
+        grey = torch.full((N, 3, 64, 64), 0.5, device=dev)
+        std = torch.full((N,), 0.05, device=dev)
+
+        def noisy(seed, s=std):
+            return apply_gaussian_noise(grey, s, torch.Generator(device=dev).manual_seed(seed))
+
+        a = noisy(1)
+        ratio = (a - grey).std().item() / 0.05
+        loud = noisy(3, torch.ones(N, device=dev))
+        print(f"[augment] noise on the card, std 0.05 on mid-grey {N}x3x64x64: measured/asked {ratio:.4f} (within "
+              f"3%); seed 1 twice equal, seed 2 differs; std 1 clipped to [{loud.min().item()}, {loud.max().item()}]")
+        check(abs(ratio - 1) < 0.03, f"noise std ratio {ratio}")
+        check(torch.equal(a, noisy(1)) and not torch.equal(a, noisy(2)), "noise generator not reproducible")
+        check(loud.min().item() == 0.0 and loud.max().item() == 1.0, "noise output not clipped to [0, 1]")
+
+        # the transforms the default config leaves off, at the crop: 8-bit
+        # pixel values, seeded coefficients, the card against the CPU
+        rng = np.random.default_rng(SEED)
+        unit = (rng.integers(0, 256, (N, 3, H, W)) / 256).astype(np.float32)
+        gt = rng.normal(0, 4, (N, 2, H, W)).astype(np.float32)
+        gt[0, :, H // 4:H // 2, W // 4:W // 2] = np.nan
+        eig = {k: rng.uniform(0.7, 1.3, (N, 3)) for k in ("pow_nomean", "mult_nomean", "pow_withmean", "mult_withmean")}
+        eig.update({k: rng.uniform(-0.1, 0.1, (N, 3)) for k in ("add_nomean", "add_withmean")})
+        eig.update(lmult_pow=rng.uniform(0.8, 1.2, N), lmult_add=rng.uniform(-0.1, 0.1, N),
+                   lmult_mult=rng.uniform(0.8, 1.2, N), col_angle=rng.uniform(-0.5, 0.5, N))
+        ang = rng.uniform(-3, 3, N)
+        shadow = (np.cos(ang), np.sin(ang), rng.uniform(-100, 100, N), rng.uniform(0.1, 0.5, N))
+        black = (np.arange(N) % 4 == 1, np.where(np.arange(N) % 2 == 0, rng.uniform(0.05, 0.3, N), 0.0))
+
+        def pixel_transforms(device):
+            def t(a):
+                return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+            img = t(unit)
+            black_img, black_flow = apply_black_augmentation(img, t(gt), *map(t, black))
+            return dict(eigen=apply_chromatic_eigen_transform(img, {k: t(v) for k, v in eig.items()}),
+                        shadow=apply_shadow(img, *map(t, shadow)), black=black_img, black_flow=black_flow)
+
+        on_card, on_cpu = pixel_transforms(dev), pixel_transforms("cpu")
+        errs = {k: (on_card[k].cpu() - v).nan_to_num(0.0).abs().max().item() for k, v in on_cpu.items()}
+        same_nan = all(torch.equal(on_card[k].cpu().isnan(), v.isnan()) for k, v in on_cpu.items())
+        print(f"[augment] black, eigen, shadow on {N}x3x{H}x{W}, card vs CPU max abs err (limits eigen 1e-5, others "
+              f"1e-6): {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; NaN pattern "
+              f"{'equal' if same_nan else 'DIFFERENT'}")
+        check(same_nan and bool(on_cpu["black_flow"].isnan().any()), "black flow: NaN pattern, card vs CPU")
+        check(all(v <= (1e-5 if k == "eigen" else 1e-6) for k, v in errs.items()), f"pixel transforms: {errs}")
+        del on_card, on_cpu
+
+        resident = {k: torch.as_tensor(v, device=dev) for k, v in next(loader).items()}
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def augment():
+            with torch.no_grad():
+                apply_augmentation_device(resident, gen, H, W)
+
+        aug_ms = cuda_ms(augment)
+        img = (resident["img0"].permute(0, 3, 1, 2).float() / 255.0).contiguous()
+        posflow = affine_position_flow(resident["aug_mat0"], sh, sw, sh, sw)
+        k1_ms = cuda_ms(lambda: flow_warp_cuda(img, posflow))
+        k1_bound = warp_bounds(N * sh * sw, torch.float32)[0]
+        theta = affine_theta(resident["aug_mat0"], sh, sw, H, W)
+
+        def library():
+            grid = F.affine_grid(theta, (N, 3, H, W), align_corners=True)
+            return F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+        lib_ms = cuda_ms(library)
+        sample = flow_warp_cuda(img, posflow)[:, :, :H, :W]
+        lib_diff = (library() - sample).abs().max().item()
+        kernels["flow_warp"].update(augment_shape=f"{N}x3x{sh}x{sw} canvas, {N}x3x{H}x{W} crop", augment_ms=k1_ms,
+                                    augment_bound_ms=k1_bound["bound_ms"], augment_library_ms=lib_ms)
+        print(f"[times] augmentation alone (both frames, flow, chromatic, noise) {sw}x{sh} -> {W}x{H} b{N}: "
+              f"{aug_ms:.4f} ms; K1 at its {N}x3x{sh}x{sw} canvas {k1_ms:.4f} ms, bound {k1_bound['bound_ms']:.4f} "
+              f"ms ({k1_bound['bound_by']}); F.affine_grid + F.grid_sample (bilinear, border) at the crop "
+              f"{lib_ms:.4f} ms (max abs difference to K1's sample {lib_diff:.3g}: the clamps differ) ({card})")
+        timings["augment"] = dict(ms=aug_ms, k1_ms=k1_ms, library_ms=lib_ms)
+        del img, posflow
+
+        y0, x0 = (sh - H) // 2, (sw - W) // 2
+        cropped = {k: resident[k][:, y0:y0 + H, x0:x0 + W].contiguous() for k in ("img0", "img1", "flow")}
+        for label, loss_fn in (("f32", flownet_c_loss), ("bf16", with_compute_dtype(flownet_c_loss, torch.bfloat16))):
+            aug_solver = Solver(config, make_augmented_loss(loss_fn, H, W, seed=SEED), _net("flownetc"), device=dev)
+            plain_solver = Solver(config, loss_fn, _net("flownetc"), device=dev)
+
+            def plain_block(k=16):
+                for _ in range(k):
+                    plain_solver.step(cropped)
+
+            def aug_block(k=16):
+                for _ in range(k):
+                    aug_solver.step(resident)
+
+            # single steps, each waited for; then blocks of 16 steps queued
+            # back to back, as training runs them (one wait a block)
+            plain, aug = interleaved_ms([lambda: plain_solver.step(cropped), lambda: aug_solver.step(resident)])
+            diff = [a - p for a, p in zip(aug, plain)]
+            plain_blocks, aug_blocks = interleaved_ms([plain_block, aug_block], rounds=4, warmup=1)
+            per_step = [statistics.median(b) / 16 for b in (plain_blocks, aug_blocks)]
+            timings[f"flownetc {label} augmented"] = dict(ms=aug, plain_ms=plain, block_ms=per_step)
+            print(f"[times] train step flownetc {label} {W}x{H} b{N}, 25 single steps each in turns, median "
+                  f"[quartiles] ms: augmented from {sw}x{sh} {quartiles(aug)}, unaugmented resident "
+                  f"{quartiles(plain)}, paired difference {quartiles(diff)} "
+                  f"({100 * statistics.median(diff) / statistics.median(plain):.1f}%); back to back, 4 blocks of 16 "
+                  f"steps each in turns, median ms a step: augmented {per_step[1]:.3f}, unaugmented {per_step[0]:.3f} "
+                  f"({100 * (per_step[1] / per_step[0] - 1):.1f}%) ({card})")
+            del aug_solver, plain_solver
+
+        rec = os.path.join(tmp, "chairs.flowrec")
+        with FlowRecordWriter(rec) as w:
+            for sample in FlyingChairs(chairs):
+                w.write(sample["img0"].astype(np.uint8), sample["img1"].astype(np.uint8), sample["flow"])
+        aug_dir = os.path.join(tmp, "augmented")
+        runs = (  # label, arguments, steps, launches (warp, warp bwd, corr, corr bwd)
+            ("flownetc", ["--model", "flownetc", "--recompute-mean", "2", "--write-augmented", aug_dir], 3,
+             (12, 0, 3, 3)),
+            ("flownet2-sd-sdhom", ["--model", "flownet2-sd", "--loss", "flownet2-sd-sdhom"], 2, (4, 0, 0, 0)),
+        )
+        for label, extra, steps, expected in runs:
+            argv = [*extra, "--dataset", "flowrec", "--data-root", rec, "--batch", str(N), "--crop", f"{H}x{W}",
+                    "--max-iter", str(steps), "--display", "1", "--snapshot-dir", os.path.join(tmp, f"snaps_{label}"),
+                    "--gpu", "0"]
+            t0 = time.perf_counter()
+            out, got = train_cli_in_process(argv, counters)
+            wall = time.perf_counter() - t0
+            rates = [float(line.split("(")[-1].split()[0]) for line in out.splitlines() if line.startswith("Iteration")]
+            check(f"Iteration {steps}, loss" in out and "augmented" in out, f"cli.train {label}: {out[-1000:]}")
+            check(got == expected, f"cli.train {label}: launches {got}, expected {expected}")
+            print(f"[augment] cli.train {' '.join(extra[:4])} --dataset flowrec (transport) --batch {N} --crop {H}x{W} "
+                  f"--max-iter {steps} --display 1 --gpu 0: launches (warp, warp bwd, corr, corr bwd) {got}; ms a "
+                  f"step by the log's rates {', '.join(f'{1e3 / r:.1f}' for r in rates)} (host clock, display and "
+                  f"writes included), {wall:.1f} s in all with start-up; {out.strip().splitlines()[-1]}")
+            timings[f"cli {label}"] = dict(step_ms=[1e3 / r for r in rates], seconds=wall)
+        written = sorted(os.listdir(aug_dir))
+        check(len(written) == 3 * 2 * N + 4 and "mean1.float3" in written and f"aug1_0000003({N - 1:03d}).ppm" in written,
+              f"--write-augmented wrote {written[:6]}... ({len(written)} files)")
+        print(f"[augment] --write-augmented: {len(written)} files ({written[0]} ... {written[-1]})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return timings
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1696,6 +1993,7 @@ def main() -> int:
     timed("dispnet train", phase_dispnet_train, dev, smi, kernels)
     timed("weights", phase_weights, dev, smi)
     timed("records", phase_records, dev, smi)
+    timed("augment", phase_augment, dev, smi, kernels)
     print(f"[times] phases (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; "
           f"all {time.perf_counter() - t0:.1f}")
     order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",

@@ -3,11 +3,22 @@
 Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
 
     python -m flownet2_tpu_torch.cli.train --model flownetc --dataset flyingchairs
-        --data-root DIR --no-augment [--loss KEY] [--schedule S_long] [--base-lr LR]
+        --data-root DIR [--no-augment] [--recompute-mean K] [--mean-per-pixel]
+        [--write-augmented DIR] [--loss KEY] [--schedule S_long] [--base-lr LR]
         [--solver adam] [--batch 8] [--crop 320x448] [--iter-size 1] [--max-iter N]
         [--weights W] [--snapshot DIR/iter_NNNNNNN] [--snapshot-dir DIR]
         [--snapshot-interval N] [--display N] [--seed S] [--gpu N | --device cpu]
 
+- augmentation is on by default, as the paper trains: the loader hands
+  over batches at source resolution with the sampled coefficients, and the
+  card makes the crops (the affine sample on the warp kernel K1), the
+  ground-truth flow transform, the chromatic transform and the noise
+  (``data/augment_pipeline.py``); ``--no-augment`` trains on center crops.
+  ``--recompute-mean K`` subtracts a running mean of the augmented images,
+  updated for K iterations (per channel, or per pixel with
+  ``--mean-per-pixel``), and snapshots it; ``--write-augmented DIR`` writes
+  the augmented batch, its coefficients and the mean files every display
+  interval;
 - ``--dataset``: a layout (flyingchairs, chairssdhom, flyingthings3d,
   sintel, kitti) or a packed format (flowrec, lmdb, leveldb, or auto to
   sniff one) at ``--data-root``. ``.flowrec`` records are read in transport
@@ -17,6 +28,9 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
 - ``--loss`` picks an objective of ``train.objectives.LOSSES`` (default: the
   model's own); the cascade-stage losses (flownet2-s1, -s2, -fusion,
   -c-stage, -sd-stage) train one sub-net of ``--model flownet2``;
+  flownet2-sd-sdhom (the ChairsSDHom recipe's Lpq loss, at its first
+  episode (2.0, 0.5): no loss schedule, no black augmentation) trains
+  ``--model flownet2-sd``;
 - ``--weights`` copies the layers whose names and shapes match from a flat
   ``.npz`` or the reference's ``.caffemodel`` / ``.caffemodel.h5`` (whose
   import must fit the model's net); ``--snapshot`` resumes weights,
@@ -25,15 +39,17 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
   (``cpu`` for tests). Without a card and without ``--device`` the CLI
   exits with an error: it never falls back to the CPU.
 
-Not yet in the port, each refused with a message: augmentation (a run
-without ``--no-augment``), more than one card (``--gpu all`` or a list),
-``--device-cache``, ``--recompute-mean``, ``--write-augmented`` and
-``--steps-per-dispatch``.
+Refused with a message: more than one card (``--gpu all`` or a list),
+``--device-cache`` and ``--steps-per-dispatch`` (not in the port yet);
+``--model dispnetc`` without ``--no-augment`` (the augmentation transforms
+2-channel flow, not 1-channel disparity; so does the JAX package's); and
+``--recompute-mean`` with ``--iter-size`` above 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -57,27 +73,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--snapshot-interval", type=int, default=50000)
     p.add_argument("--display", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--no-augment", action="store_true")
+    p.add_argument("--no-augment", action="store_true", help="train on center crops, without augmentation")
+    p.add_argument("--recompute-mean", type=int, default=0, metavar="K",
+                   help="running-mean window: update a mean of the augmented images for K iterations and "
+                   "subtract it every step (AugmentationParameter.recompute_mean)")
+    p.add_argument("--mean-per-pixel", action="store_true",
+                   help="subtract the per-pixel mean instead of its per-channel average")
+    p.add_argument("--write-augmented", default=None, metavar="DIR",
+                   help="debug: write the augmented batch, its coefficients and the mean files to DIR every "
+                   "display interval (AugmentationParameter.write_augmented)")
     p.add_argument("--gpu", default="0", help="CUDA device index (one card)")
     p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
     # flags of the JAX CLI whose pieces are not ported yet: refused when set
     p.add_argument("--device-cache", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--recompute-mean", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--write-augmented", default=None, help=argparse.SUPPRESS)
     p.add_argument("--steps-per-dispatch", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 
-def _refuse_unported(args) -> None:
-    if not args.no_augment:
-        raise SystemExit("augmentation is not ported to PyTorch yet; pass --no-augment")
-    for flag, value in (("--device-cache", args.device_cache), ("--recompute-mean", args.recompute_mean),
-                        ("--write-augmented", args.write_augmented),
-                        ("--steps-per-dispatch", args.steps_per_dispatch)):
+def _refuse_unsupported(args) -> None:
+    for flag, value in (("--device-cache", args.device_cache), ("--steps-per-dispatch", args.steps_per_dispatch)):
         if value:
             raise SystemExit(f"{flag} is not ported to PyTorch yet")
     if args.device is None and not args.gpu.isdigit():
         raise SystemExit(f"--gpu {args.gpu}: the PyTorch port trains on one card; pass one index")
+    if args.model == "dispnetc" and not args.no_augment:
+        raise SystemExit("--model dispnetc trains on 1-channel disparity, which the augmentation cannot transform: "
+                         "its ground-truth transform takes 2-channel flow, in the JAX package too; pass --no-augment")
+    if args.recompute_mean and args.iter_size > 1 and not args.no_augment:
+        raise SystemExit("--recompute-mean updates its mean once a step from the whole batch; "
+                         "it does not take --iter-size above 1")
 
 
 def _open_dataset(args):
@@ -119,14 +143,22 @@ def _device(args) -> str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    _refuse_unsupported(args)
 
     from flownet2_tpu_torch.checkpoint import init_params, load_into
     from flownet2_tpu_torch.cli.run_flownet import load_weights
     from flownet2_tpu_torch.data import BatchLoader
+    from flownet2_tpu_torch.data.augment_pipeline import (
+        BATCH_MEAN_KEYS,
+        MEAN_KEYS,
+        make_augmented_loss,
+        make_flownet_augmenter,
+        write_augmented,
+    )
+    from flownet2_tpu_torch.data.mean import MeanRecompute
     from flownet2_tpu_torch.models import NETS, FlowNet2
     from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
-    from flownet2_tpu_torch.train.objectives import LOSSES, STAGE_LOSS_KEY, trainable_module
+    from flownet2_tpu_torch.train.objectives import LOSS_MODEL, LOSSES, STAGE_LOSS_KEY, trainable_module
 
     import torch
 
@@ -136,7 +168,9 @@ def main(argv=None) -> int:
     if loss_key not in LOSSES:
         raise SystemExit(f"no training objective {loss_key!r}; choose from {sorted(LOSSES)}")
     stage_loss = loss_key in STAGE_LOSS_KEY.values()
-    if stage_loss != (NETS[args.model] is FlowNet2) or (not stage_loss and loss_key != args.model):
+    if stage_loss != (NETS[args.model] is FlowNet2) or (
+        not stage_loss and LOSS_MODEL.get(loss_key, loss_key) != args.model
+    ):
         raise SystemExit(f"objective {loss_key!r} does not train model {args.model!r}: the cascade-stage "
                          "objectives take --model flownet2, the others their own model")
     crop_h, crop_w = (int(v) for v in args.crop.split("x"))
@@ -156,28 +190,60 @@ def main(argv=None) -> int:
         momentum2=0.999,
         iter_size=args.iter_size,
     )
+    augment = not args.no_augment
+    loss_fn, means, transform = LOSSES[loss_key], [], None
+    if augment:
+        loss_fn = make_augmented_loss(loss_fn, crop_h, crop_w, seed=args.seed, mean_window=args.recompute_mean,
+                                      mean_per_pixel=args.mean_per_pixel)
+        transform = make_flownet_augmenter(crop_h, crop_w)
+        if args.recompute_mean > 0:
+            means = [MeanRecompute(crop_h, crop_w, 3, window=args.recompute_mean, per_pixel=args.mean_per_pixel)
+                     for _ in MEAN_KEYS]
     with torch.device("meta"):
         net = NETS[args.model]()
     load_into(net, init_params(args.model, seed=args.seed))
     solver = Solver(
-        config, LOSSES[loss_key], net, device=device, trainable=trainable_module(net, loss_key),
+        config, loss_fn, net, device=device, trainable=trainable_module(net, loss_key),
         snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval, display=args.display,
     )
     solver.install_signal_handlers()
+    for i, m in enumerate(means):
+        solver.register_extra(f"mean{i}", m)
     if args.weights:
         solver.copy_weights_from(load_weights(args.weights, args.model))
     if args.snapshot:
         solver.restore(args.snapshot)
 
-    loader = BatchLoader(dataset, args.batch * args.iter_size, crop=(crop_h, crop_w), shuffle_seed=args.seed)
-    batch_hook = None
-    if args.iter_size > 1:
-        def batch_hook(batch):  # the leading micro-batch axis make_train_step takes
-            return {k: v.reshape(args.iter_size, args.batch, *v.shape[1:]) for k, v in batch.items()}
+    # with augmentation the batches stay at source resolution: the card crops
+    loader = BatchLoader(dataset, args.batch * args.iter_size, crop=None if augment else (crop_h, crop_w),
+                         shuffle_seed=args.seed, transform=transform)
+    last_batch = {}  # the batch of the latest step, for --write-augmented
+
+    # The running mean attaches at step time, not in the prefetching
+    # transform: a transform runs batches ahead, and would hand the card a
+    # mean and a counter that lag the host mirror by the queue's depth (the
+    # reference updates its mean blobs inside Forward, cu:592-635).
+    def batch_hook(batch):
+        if augment and args.write_augmented:
+            last_batch["batch"] = batch
+        for m, key in zip(means, MEAN_KEYS):
+            batch = m.attach(batch, key=key)
+        if args.iter_size > 1:  # the leading micro-batch axis make_train_step takes
+            batch = {k: v.reshape(args.iter_size, args.batch, *v.shape[1:]) for k, v in batch.items()}
+        return batch
+
+    def on_step(it, loss, aux):
+        for m, key in zip(means, BATCH_MEAN_KEYS):
+            m.update(aux[key].cpu().numpy())
+        if last_batch and args.display and it % args.display == 0:
+            write_augmented(last_batch["batch"], args.write_augmented, it, crop_h, crop_w, device=device)
+            for i, m in enumerate(means):
+                m.write_mean(os.path.join(args.write_augmented, f"mean{i}.float3"))
 
     print(f"Training {args.model} ({loss_key}) on {args.dataset} ({len(dataset)} samples) on {device}, "
-          f"{max_iter} iterations, crop {crop_h}x{crop_w}, batch {args.batch} x iter_size {args.iter_size}")
-    solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook)
+          f"{max_iter} iterations, crop {crop_h}x{crop_w}, batch {args.batch} x iter_size {args.iter_size}"
+          + (", augmented" if augment else ", center crops"))
+    solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook, on_step=on_step)
     print(f"Optimization done, final smoothed loss {solver.smoothed_loss:.4f}")
     return 0
 

@@ -1,7 +1,8 @@
 """Data: optical-flow datasets read from files, the packed formats (``.flowrec``
-records, LMDB and LevelDB, read without their native libraries), and the
-prefetching loader (flownet2_tpu/data, without its device cache and the
-mean recompute, which wait for augmentation)."""
+records, LMDB and LevelDB, read without their native libraries), the
+prefetching loader, and the training augmentation's host side and device
+application with its running mean (``aug_params``, ``augment_pipeline``,
+``mean``): flownet2_tpu/data without its device cache."""
 
 from flownet2_tpu_torch.data.datasets import (
     KITTI,

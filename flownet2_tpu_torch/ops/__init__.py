@@ -13,6 +13,9 @@
                      width routing.
 - ``fusion_head``  — the fusion net's decoder head in one CUDA launch + the
                      plain composition of its layers.
+- ``augment``      — the training augmentation: host coefficient sampling and the
+                     device transforms (the affine sample through ``warp``).
+- ``mean``         — the Mean layer: add or subtract a mean with scales.
 
 Other convolutions and deconvolutions are ``F.conv2d`` / ``F.conv_transpose2d``
 (through ``nn.Conv2d`` / ``nn.ConvTranspose2d`` in the models).

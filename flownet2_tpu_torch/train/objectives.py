@@ -30,7 +30,9 @@ from flownet2_tpu_torch.models.flownet2 import (
     flownet2_forward,
     normalize_images,
 )
-from flownet2_tpu_torch.ops.losses import l1_loss, multiscale_l1_loss
+from flownet2_tpu_torch.ops.augment import apply_black_augmentation
+from flownet2_tpu_torch.ops.downsample import downsample_nan_aware
+from flownet2_tpu_torch.ops.losses import DEFAULT_SCALE_WEIGHTS, l1_loss, lpq_loss, multiscale_l1_loss
 
 
 def _batch_views(batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -61,7 +63,9 @@ class _BoundLoss(nn.Module):
 def with_compute_dtype(loss_fn: Callable, dtype: torch.dtype | None) -> Callable:
     """Mixed precision: run the net in ``dtype`` (activations and a cast copy
     of the weights) while the optimizer keeps float32 master weights; the
-    gradients come back in float32 through the cast. ``None`` is the
+    gradients come back in float32 through the cast. The images are cast
+    too, uint8 transport images included (0-255 is exact in bfloat16), so
+    the first convolution sees the weights' dtype. ``None`` is the
     identity."""
     if dtype is None:
         return loss_fn
@@ -69,8 +73,7 @@ def with_compute_dtype(loss_fn: Callable, dtype: torch.dtype | None) -> Callable
     def wrapped(net: nn.Module, batch: dict):
         b = dict(batch)
         for k in ("img0", "img1"):
-            if b[k].is_floating_point():
-                b[k] = b[k].to(dtype)
+            b[k] = b[k].to(dtype)
         cast = {f"net.{name}": p.to(dtype) for name, p in net.named_parameters()}
         return torch.func.functional_call(_BoundLoss(loss_fn, net), cast, (b,))
 
@@ -96,6 +99,35 @@ def flownet_sd_loss(net: nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
     x0, x1 = normalize_images(img0, img1)
     # the SD net predicts at 20x the other nets' scale: its target is the raw flow
     total, per_scale = multiscale_l1_loss(net(torch.cat([x0, x1], dim=1)), flow)
+    return total, {"loss": total, **per_scale}
+
+
+def flownet_sd_chairssdhom_loss(
+    net: nn.Module, batch: dict, episode: tuple[float, float] = (2.0, 0.5)
+) -> tuple[torch.Tensor, dict]:
+    """The ChairsSDHom small-displacement recipe: BlackAugmentation of the
+    batch (whole pairs blacked out or a border band zeroed,
+    black_augmentation_layer.cu), when it carries ``black_mask`` /
+    ``border_frac`` (N,), then per-scale Lpq losses at the (p, q)
+    ``episode`` (``Solver``'s ``loss_schedule`` passes it) against the
+    NaN-aware downsampled ground truth."""
+    img0, img1, flow = _batch_views(batch)
+    if "black_mask" in batch:
+        stack, flow = apply_black_augmentation(
+            torch.cat([img0, img1], dim=1), flow, batch["black_mask"], batch["border_frac"]
+        )
+        img0, img1 = stack[:, :3], stack[:, 3:]
+    x0, x1 = normalize_images(img0, img1)
+    p, q = episode
+    total = torch.zeros((), device=flow.device)
+    per_scale = {}
+    for name, f in net(torch.cat([x0, x1], dim=1)).items():
+        w = DEFAULT_SCALE_WEIGHTS.get(name, 0.0)
+        if w == 0.0:
+            continue
+        loss = lpq_loss(f, downsample_nan_aware(flow, f.shape[2], f.shape[3]), p=p, q=q)
+        per_scale[name] = loss
+        total = total + w * loss
     return total, {"loss": total, **per_scale}
 
 
@@ -185,6 +217,9 @@ STAGE_SUBTREE = {
     "fusion": "fusion",
 }
 
+# Objectives that train a model other than the one of their own name.
+LOSS_MODEL = {"flownet2-sd-sdhom": "flownet2-sd"}
+
 # Cascade stage -> its key in LOSSES (the loss takes the whole FlowNet2 net).
 STAGE_LOSS_KEY = {
     "c": "flownet2-c-stage",
@@ -209,6 +244,7 @@ LOSSES: dict[str, Callable] = {
     "flownetc": flownet_c_loss,
     "dispnetc": dispnet_c_loss,
     "flownet2-sd": flownet_sd_loss,
+    "flownet2-sd-sdhom": flownet_sd_chairssdhom_loss,
     "flownet2-s1": make_cascade_stage_loss("flownets_1"),
     "flownet2-s2": make_cascade_stage_loss("flownets_2"),
     "flownet2-fusion": make_fusion_stage_loss(),

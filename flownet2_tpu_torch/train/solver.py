@@ -10,6 +10,10 @@ reference src/caffe/solver.cpp).
   ``AVERAGE_LOSS`` iterations (solver.cpp's ``average_loss``), snapshots
   every ``snapshot_interval``, and the SIGINT/SIGHUP actions (stop,
   snapshot) checked once per iteration;
+- ``loss_schedule``: an Lpq episode schedule (``ops/losses.LpqSchedule``);
+  the loss takes the episode of each iteration, and the step is rebuilt
+  when it changes (the reference swaps the Lpq exponents at episode
+  boundaries, lpq_loss_layer.cu:97-140);
 - ``snapshot``/``restore``: the weights as the JAX package's flat ``.npz``
   (``iter_NNNNNNN.npz``, readable by ``flownet2_tpu.checkpoint.load_params``)
   and, beside it, ``iter_NNNNNNN.pt`` with the optimizer state, the
@@ -18,6 +22,7 @@ reference src/caffe/solver.cpp).
 
 from __future__ import annotations
 
+import functools
 import os
 import signal
 import time
@@ -80,7 +85,11 @@ class Solver:
 
     ``net`` is moved to ``device``; the optimizer updates the parameters of
     ``trainable`` (a sub-module of ``net``; default the whole net), and every
-    other parameter of ``net`` is frozen (``requires_grad`` off)."""
+    other parameter of ``net`` is frozen (``requires_grad`` off).
+
+    ``loss_schedule``: an object with ``.at(iteration) -> episode`` (an
+    ``LpqSchedule``); each step then calls ``loss_fn(net, batch,
+    episode=...)`` with the episode of the iteration it runs."""
 
     def __init__(
         self,
@@ -93,6 +102,7 @@ class Solver:
         snapshot_dir: Optional[str] = None,
         snapshot_interval: int = 0,
         display: int = 100,
+        loss_schedule: Optional[Any] = None,
     ):
         self.config = config
         self.device = torch.device(device)
@@ -102,7 +112,10 @@ class Solver:
         for p in net.parameters():
             p.requires_grad_(id(p) in train_ids)
         self.optimizer = make_solver(config, params)
-        self.step_fn = make_train_step(loss_fn, self.optimizer, iter_size=config.iter_size)
+        self._loss_fn = loss_fn
+        self._loss_schedule = loss_schedule
+        self._episode = loss_schedule.at(0) if loss_schedule is not None else None
+        self.step_fn = self._build_step(self._episode)
         self.iteration = 0
         self.snapshot_dir = snapshot_dir
         self.snapshot_interval = snapshot_interval
@@ -116,6 +129,10 @@ class Solver:
         # host-side state saved with snapshots: objects with
         # state_dict() / load_state_dict() of numpy arrays
         self._extras: dict[str, Any] = {}
+
+    def _build_step(self, episode):
+        loss_fn = self._loss_fn if episode is None else functools.partial(self._loss_fn, episode=episode)
+        return make_train_step(loss_fn, self.optimizer, iter_size=self.config.iter_size)
 
     def register_extra(self, name: str, obj: Any) -> None:
         """Register host-side state to persist alongside snapshots."""
@@ -145,6 +162,11 @@ class Solver:
         """One training iteration on a batch of arrays or tensors. Returns the
         loss as a device tensor: nothing here waits for the device, except
         one sync every ``sync_bound`` steps."""
+        if self._loss_schedule is not None:
+            episode = self._loss_schedule.at(self.iteration)
+            if episode != self._episode:
+                self._episode = episode
+                self.step_fn = self._build_step(episode)
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
         loss, aux = self.step_fn(self.net, batch)
         self.iteration += 1
@@ -162,17 +184,23 @@ class Solver:
         max_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
         batch_hook: Optional[Callable[[Any], Any]] = None,
+        on_step: Optional[Callable[[int, torch.Tensor, dict], None]] = None,
     ) -> None:
         """Train until ``max_iter``, honouring the display and snapshot
         intervals and the signal actions. ``batch_hook(batch) -> batch`` runs
-        on each batch just before its step."""
+        on each batch just before its step (at step time, unlike a loader
+        transform, which runs batches ahead); ``on_step(iteration, loss,
+        aux)`` runs after each step, for host state that mirrors the step
+        (a ``data.mean.MeanRecompute``)."""
         max_iter = self.config.max_iter if max_iter is None else max_iter
         t0 = time.time()
         while self.iteration < max_iter:
             batch = next(data_iter)
             if batch_hook is not None:
                 batch = batch_hook(batch)
-            self.step(batch)
+            loss, aux = self.step(batch)
+            if on_step is not None:
+                on_step(self.iteration, loss, aux)
             it = self.iteration
             if self.display and it % self.display == 0:
                 rate = self.display / max(time.time() - t0, 1e-9)

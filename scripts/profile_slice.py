@@ -27,11 +27,17 @@ instead. It prints:
     python3 scripts/profile_slice.py --fusion-head-kernel # K4 beside the unfused route: device time
     python3 scripts/profile_slice.py --dispnet            # DispNetC forward and train step, 960x576 b4
     python3 scripts/profile_slice.py --corr1d             # the 1-D correlation kernels and op: device time
+    python3 scripts/profile_slice.py --augment            # the augmentation, FlowNetC steps with and without
 
 With ``--dispnet`` it profiles DispNetC instead (default 960x576 b4, the
 FlyingThings3D frames adapted): ``FlowRunner("dispnetc").run`` per dtype,
 then one float32 Adam ``Solver.step`` of its loss on seeded images and
 disparity, each with the 1-D correlation kernels' own rows.
+With ``--augment`` it profiles the training augmentation at the paper's
+geometry (512x384 sources, uint8 images and int16 flow as a .flowrec batch
+holds them, to the 448x320 b8 crop): the augmentation alone, then per dtype
+an Adam step of FlowNetC's loss augmented from the sources beside one on
+center crops.
 With ``--corr1d`` it times the 1-D correlation's kernels (DispNet's md 40,
 single_direction -1, stride2 1) at DispNetC's FlyingThings3D features
 4x128x144x240 and KITTI's 1x128x96x320 in both dtypes: each wrapper's
@@ -105,9 +111,12 @@ KERNEL_PARTS = {
 
 
 def busy_us(prof) -> float:
-    """Length of the union of all device-side event intervals, in us."""
+    """Length of the union of the device's kernel, copy and memset
+    intervals, in us. User annotations are left out: the device-side span
+    of one (``Optimizer.step``'s) covers the gaps between its kernels."""
     ivs = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
     )
     total, cur_start, cur_end = 0.0, None, None
     for s, e in ivs:
@@ -227,6 +236,54 @@ def profile_dispnet(args, dev: torch.device) -> str:
     batch = {"img0": i0, "img1": i1, "flow": (-30 * disp).to(dev)}
     reports.append(profile_run(args, f"train dispnetc float32 {geom}", lambda: solver.step(batch)))
     return "\n".join(reports + ["registers and spills (nvcc -Xptxas -v):", *kernel_resources("correlation1d")])
+
+
+def profile_augment(args, dev: torch.device) -> str:
+    """The training augmentation at the paper's geometry: FlyingChairs'
+    512x384 sources to ``args``' crop (448x320 b8), in the transport types
+    of a .flowrec batch (uint8 images, int16 flow), seeded. The
+    augmentation alone (both frames, flow, chromatic, noise), then per
+    dtype Adam steps of FlowNetC's loss augmented from the sources beside
+    steps on the center crops."""
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.core.codec import encode_flow_int16
+    from flownet2_tpu_torch.data.augment_pipeline import (
+        FlowNetAugConfig,
+        apply_augmentation_device,
+        make_augmented_loss,
+        sample_aug_arrays,
+    )
+    from flownet2_tpu_torch.models import FlowNetC
+    from flownet2_tpu_torch.train import Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import flownet_c_loss, with_compute_dtype
+
+    n, h, w, (sh, sw) = args.batch, args.height, args.width, (384, 512)
+    rng = np.random.default_rng(SEED)
+    host = {"img0": rng.integers(0, 256, (n, sh, sw, 3), dtype=np.uint8),
+            "img1": rng.integers(0, 256, (n, sh, sw, 3), dtype=np.uint8),
+            "flow": encode_flow_int16(rng.normal(0, 4, (n, sh, sw, 2)))}
+    host.update(sample_aug_arrays(FlowNetAugConfig(), rng, n, sh, sw, h, w))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def augment():
+        with torch.no_grad():
+            apply_augmentation_device(batch, gen, h, w)
+
+    reports = [profile_run(args, f"augment {sw}x{sh} to {w}x{h} b{n}", augment)]
+    y0, x0 = (sh - h) // 2, (sw - w) // 2
+    cropped = {k: batch[k][:, y0:y0 + h, x0:x0 + w].contiguous() for k in ("img0", "img1", "flow")}
+    params = init_params("flownetc", seed=SEED)
+    for dtype in args.dtypes:
+        loss_fn = flownet_c_loss if dtype == "float32" else with_compute_dtype(flownet_c_loss, getattr(torch, dtype))
+        for label, fn, b in (("augmented", make_augmented_loss(loss_fn, h, w, seed=SEED), batch),
+                             ("center crops", loss_fn, cropped)):
+            with torch.device("meta"):
+                net = FlowNetC()
+            solver = Solver(SolverConfig(solver_type="adam"), fn, load_into(net, params), device=dev)
+            reports.append(profile_run(args, f"train flownetc {dtype} {label}", lambda: solver.step(b)))
+            del solver, net
+    return "\n".join(reports)
 
 
 def _device_us(run, patterns, require: bool = True) -> dict[str, float]:
@@ -493,6 +550,8 @@ def main(argv=None) -> int:
     p.add_argument("--dispnet", action="store_true", help="DispNetC's forward and train step (960x576 b4)")
     p.add_argument("--corr1d", action="store_true",
                    help="the 1-D correlation kernels and op at 4x128x144x240 and 1x128x96x320: device time")
+    p.add_argument("--augment", action="store_true",
+                   help="the training augmentation, 512x384 to 448x320 b8, and FlowNetC steps with and without it")
     args = p.parse_args(argv)
     defaults = (576, 960, 4) if args.dispnet else (320, 448, 8)
     args.height, args.width, args.batch = (v or d for v, d in zip((args.height, args.width, args.batch), defaults))
@@ -518,6 +577,8 @@ def main(argv=None) -> int:
         print(profile_corr1d(args, dev))
     elif args.dispnet:
         print(profile_dispnet(args, dev))
+    elif args.augment:
+        print(profile_augment(args, dev))
     elif args.train:
         for dtype in args.dtypes:
             print(profile_train(args, "flownetc", dtype, dev))

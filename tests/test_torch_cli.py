@@ -132,6 +132,50 @@ def test_port_cli_runs_without_jax(tmp_path, pair):
     assert flow.shape == (70, 90, 2) and np.isfinite(flow).all()
 
 
+_TRAIN_NO_JAX = _NO_JAX.replace("from flownet2_tpu_torch.cli.run_flownet import main", "from flownet2_tpu_torch.cli.train import main")
+
+
+def test_augmented_training_from_transport_records_runs_without_jax(tmp_path):
+    """cli.train with augmentation (its default) on a .flowrec read in
+    transport mode (uint8 images, int16 flow at source size, decoded by the
+    objective), in a subprocess that refuses jax: it trains, writes the
+    augmented pairs and the running means."""
+    from flownet2_tpu_torch.data import FlowRecordWriter
+
+    rng = np.random.default_rng(12)
+    rec = str(tmp_path / "chairs.flowrec")
+    with FlowRecordWriter(rec) as w:
+        for _ in range(4):
+            flow = rng.normal(0, 3, (80, 160, 2)).astype(np.float32)
+            flow[5:9, 10:30] = np.nan
+            w.write(rng.integers(0, 256, (80, 160, 3), dtype=np.uint8),
+                    rng.integers(0, 256, (80, 160, 3), dtype=np.uint8), flow)
+    aug = tmp_path / "aug"
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["OMP_NUM_THREADS"] = "2"
+    argv = ["--model", "flownets", "--dataset", "flowrec", "--data-root", rec, "--batch", "2", "--crop", "64x128",
+            "--max-iter", "1", "--recompute-mean", "1", "--mean-per-pixel", "--write-augmented", str(aug),
+            "--display", "1", "--snapshot-dir", "", "--device", "cpu"]
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_NO_JAX, *argv], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "ran without jax, rc 0" in proc.stdout and "augmented" in proc.stdout
+    assert sorted(os.listdir(aug)) == ["aug0_0000001(000).ppm", "aug0_0000001(001).ppm", "aug1_0000001(000).ppm",
+                                       "aug1_0000001(001).ppm", "mean0.float3", "mean0.ppm", "mean1.float3",
+                                       "mean1.ppm"]
+    assert flow_io.read_ppm(str(aug / "aug0_0000001(000).ppm")).shape == (64, 128, 3)
+
+
+def test_train_cli_without_card_refuses_to_fall_back(monkeypatch, tmp_path):
+    """Augmented training without --device and without a card exits; the
+    augmentation never moves to the CPU on its own."""
+    from flownet2_tpu_torch.cli.train import main as train_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        train_main(["--model", "flownetc", "--data-root", str(tmp_path)])
+
+
 def test_cli_without_card_refuses_to_fall_back(monkeypatch, tmp_path, pair):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):

@@ -1070,3 +1070,86 @@ def test_train_cli_dispnetc_step_from_disparity_records(cuda, tmp_path):
     assert (correlation_1d_cuda.launches - before[0], correlation_1d_backward_cuda.launches - before[1]) == (1, 1)
     with np.load(tmp_path / "snaps" / "iter_0000001.npz") as z:
         assert all(np.isfinite(z[k]).all() for k in z.files)
+
+
+@pytest.mark.parametrize("crop", [(64, 96), (80, 160)], ids=["inside the source", "wider than the source"])
+def test_augmentation_on_card_matches_cpu_and_runs_on_k1(cuda, crop):
+    """The augmented batch (noise 0) on the card against the CPU: images
+    within 1e-3 on the 0-255 scale, flow equal with its NaN pattern; the
+    affine sample launches K1 once a frame, and nothing records K2."""
+    from flownet2_tpu_torch.data.augment_pipeline import (
+        FlowNetAugConfig,
+        apply_augmentation_device,
+        sample_aug_arrays,
+    )
+
+    rng = np.random.default_rng(18)
+    n, sh, sw = 2, 72, 128
+    batch = {"img0": rng.integers(0, 256, (n, sh, sw, 3), dtype=np.uint8),
+             "img1": rng.integers(0, 256, (n, sh, sw, 3), dtype=np.uint8),
+             "flow": rng.normal(0, 3, (n, sh, sw, 2)).astype(np.float32)}
+    batch["flow"][0, :, :, 1] = np.nan
+    batch.update(sample_aug_arrays(FlowNetAugConfig(), rng, n, sh, sw, *crop))
+    batch["aug_noise"] = np.zeros(n, np.float32)
+
+    def run(device):
+        on = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            return apply_augmentation_device(on, torch.Generator(device=device).manual_seed(0), *crop)
+
+    before = flow_warp_cuda.launches, flow_warp_backward_cuda.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert (flow_warp_cuda.launches - before[0], flow_warp_backward_cuda.launches - before[1]) == (2, 0)
+    ref = run("cpu")
+    for k in ("img0", "img1"):
+        assert got[k].shape == (n, 3, *crop)
+        assert (got[k].cpu() - ref[k]).abs().max().item() <= 1e-3
+    flow, ref_flow = got["flow"].cpu(), ref["flow"]
+    assert torch.equal(flow.isnan(), ref_flow.isnan()) and ref_flow.isnan().any()
+    assert torch.equal(flow.nan_to_num(0.0), ref_flow.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("transform", ["black", "eigen", "shadow"])
+def test_pixel_transforms_on_card_match_cpu(cuda, transform):
+    """Black, chromatic-eigen and shadow on the card against the CPU, on
+    8-bit pixel values in [0, 1]: black and shadow within 1e-6 with the
+    same NaN pattern, eigen (pow, trigonometry and a batch mean, each
+    rounded by the card's own routines) within 1e-5."""
+    from flownet2_tpu_torch.ops.augment import apply_black_augmentation, apply_chromatic_eigen_transform, apply_shadow
+
+    rng = np.random.default_rng(19)
+    n, h, w = 3, 48, 64
+    imgs = (rng.integers(0, 256, (n, 3, h, w)) / 256).astype(np.float32)
+    flows = rng.normal(0, 3, (n, 2, h, w)).astype(np.float32)
+    flows[0, :, 5:12, 8:20] = np.nan
+    ang, dist = rng.uniform(-3, 3, n), rng.uniform(-20, 20, n)
+    eigen = {k: rng.uniform(0.7, 1.3, (n, 3)) for k in ("pow_nomean", "mult_nomean", "pow_withmean", "mult_withmean")}
+    eigen.update({k: rng.uniform(-0.1, 0.1, (n, 3)) for k in ("add_nomean", "add_withmean")})
+    eigen.update(lmult_pow=rng.uniform(0.8, 1.2, n), lmult_add=rng.uniform(-0.1, 0.1, n),
+                 lmult_mult=rng.uniform(0.8, 1.2, n), col_angle=rng.uniform(-0.5, 0.5, n))
+
+    def run(device):
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        if transform == "black":
+            return apply_black_augmentation(t(imgs), t(flows), t([0.0, 1.0, 0.0]), t([0.15, 0.0, 0.3]))
+        if transform == "eigen":
+            return (apply_chromatic_eigen_transform(t(imgs), {k: t(v) for k, v in eigen.items()}),)
+        return (apply_shadow(t(imgs), t(np.cos(ang)), t(np.sin(ang)), t(dist), t([0.2, 0.4, 0.3])),)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = run(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref = run("cpu")
+    for g, r in zip(got, ref):
+        g = g.cpu()
+        assert g.shape == r.shape and torch.equal(g.isnan(), r.isnan())
+        err = (g - r).nan_to_num(0.0).abs().max().item()
+        assert err <= (1e-5 if transform == "eigen" else 1e-6), err
+    if transform == "black":
+        assert ref[1].isnan().any() and (ref[0][1] == 0).all()

@@ -366,6 +366,26 @@ def test_with_compute_dtype_runs_bf16_over_float32_master_weights():
     assert torch.nn.functional.cosine_similarity(grads[None], grads[torch.bfloat16], dim=0) > 0.9
 
 
+def test_with_compute_dtype_takes_uint8_transport_images():
+    """A transport batch (uint8 images, int16 flow) trains in bf16 to the
+    loss of its float form: 0-255 is exact in bf16, so both cast to the same
+    images (uint8 images reached the bf16 convolution as float32 before)."""
+    from flownet2_tpu_torch.core.codec import encode_flow_int16
+
+    batch = _smooth_batch(np.random.default_rng(8), 1)
+    batch = {"img0": np.round(batch["img0"]), "img1": np.round(batch["img1"]),
+             "flow": np.round(batch["flow"] * 32) / 32}
+    transport = {"img0": batch["img0"].astype(np.uint8), "img1": batch["img1"].astype(np.uint8),
+                 "flow": encode_flow_int16(batch["flow"])}
+    with torch.device("meta"):
+        net = FlowNetC()
+    load_into(net, init_params("flownetc", seed=2))
+    loss_fn = with_compute_dtype(flownet_c_loss, torch.bfloat16)
+    with torch.no_grad():
+        losses = [loss_fn(net, {k: torch.from_numpy(v) for k, v in b.items()})[0].item() for b in (batch, transport)]
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+
+
 def test_solver_snapshot_restore_gives_the_same_next_step(tmp_path):
     rng = np.random.default_rng(4)
     batches = [_smooth_batch(rng, 1) for _ in range(3)]
@@ -448,19 +468,62 @@ def test_train_cli_runs_snapshots_and_resumes(tmp_path, capsys):
     assert (snaps / "iter_0000003.npz").exists()
 
 
+@pytest.mark.parametrize("model", ["flownetc", "flownet2-sd-sdhom"])
+def test_train_cli_augments_by_default(tmp_path, capsys, model):
+    """Without --no-augment: batches at source size (80x160), crops of 64x128
+    made by the objective; the sdhom loss trains FlowNet2-SD."""
+    data = tmp_path / "chairs"
+    data.mkdir()
+    _write_chairs(str(data), n=4, h=80, w=160)
+    net = ["--model", "flownetc"] if model == "flownetc" else ["--model", "flownet2-sd", "--loss", model]
+    assert train_main([*net, "--data-root", str(data), "--batch", "2", "--crop", "64x128", "--max-iter", "2",
+                       "--snapshot-dir", "", "--device", "cpu", "--display", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "crop 64x128, batch 2 x iter_size 1, augmented" in out and "Iteration 2, loss" in out
+    assert "nan" not in out.split("Iteration 2, loss")[1].split("\n")[0]
+
+
+def test_train_cli_recompute_mean_and_write_augmented(tmp_path, capsys):
+    """--recompute-mean 2 --write-augmented DIR --display 1: each step's
+    augmented pair under the JAX names, the two running means as .float3
+    (read by the JAX reader) and .ppm, and the means in the snapshot."""
+    from flownet2_tpu.tools.writers import read_float_blob as jax_read_float_blob
+
+    data, snaps, aug = tmp_path / "chairs", tmp_path / "snaps", tmp_path / "aug"
+    data.mkdir()
+    _write_chairs(str(data), n=4, h=80, w=160)
+    assert train_main(["--model", "flownetc", "--data-root", str(data), "--batch", "2", "--crop", "64x128",
+                       "--max-iter", "2", "--recompute-mean", "2", "--write-augmented", str(aug), "--display", "1",
+                       "--snapshot-dir", str(snaps), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("Augmenting 0, affine0: [") == 2 and out.count("Augmenting 1,") == 2
+    written = sorted(os.listdir(aug))
+    assert written == sorted([f"aug{f}_{i:07d}({n:03d}).ppm" for f in (0, 1) for i in (1, 2) for n in (0, 1)]
+                             + ["mean0.float3", "mean0.ppm", "mean1.float3", "mean1.ppm"])
+    extras = torch.load(snaps / "iter_0000002.pt", weights_only=True)["extras"]
+    for i in (0, 1):
+        blob = jax_read_float_blob(str(aug / f"mean{i}.float3"))
+        assert blob.shape == (64, 128, 3) and 0 < blob.mean() < 1
+        np.testing.assert_array_equal(extras[f"mean{i}"]["mean"].numpy(), blob)
+        assert int(extras[f"mean{i}"]["num_iter"]) == 2
+
+
 @pytest.mark.parametrize("extra,message", [
-    ([], "augmentation"),
+    # the augmentation's ground-truth transform takes 2-channel flow, in the JAX package too
+    (["--model", "dispnetc"], "1-channel disparity, which the augmentation cannot transform"),
     (["--no-augment", "--gpu", "all"], "one card"),
     (["--no-augment", "--gpu", "0,1"], "one card"),
     (["--no-augment", "--device-cache", "64"], "--device-cache"),
-    (["--no-augment", "--recompute-mean", "8"], "--recompute-mean"),
-    (["--no-augment", "--write-augmented", "x"], "--write-augmented"),
+    (["--device-cache", "64"], "--device-cache"),  # with augmentation
+    (["--gpu", "all"], "one card"),  # with augmentation
     (["--no-augment", "--steps-per-dispatch", "4"], "--steps-per-dispatch"),
+    (["--recompute-mean", "2", "--iter-size", "2"], "--iter-size"),
     (["--no-augment", "--device", "cpu", "--loss", "flownet2-s1"], "does not train"),
     # DispNetC trains from packed disparity records, not from a flow layout
     (["--no-augment", "--device", "cpu", "--model", "dispnetc"], "disparity"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, message):
+    """Refusals of what the port does not do, or the JAX package cannot do."""
     with pytest.raises(SystemExit, match=message):
         train_main(["--model", "flownetc", "--data-root", str(tmp_path), *extra])
 
@@ -481,6 +544,8 @@ class BlockJax(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, BlockJax())
 import flownet2_tpu_torch.train, flownet2_tpu_torch.train.objectives, flownet2_tpu_torch.data
 import flownet2_tpu_torch.cli.train, flownet2_tpu_torch.ops.losses
+import flownet2_tpu_torch.data.augment_pipeline, flownet2_tpu_torch.data.aug_params, flownet2_tpu_torch.data.mean
+import flownet2_tpu_torch.ops.augment, flownet2_tpu_torch.ops.mean, flownet2_tpu_torch.tools.writers
 assert not [m for m in sys.modules if blocked(m)]
 print("imported without jax")
 """
