@@ -55,6 +55,15 @@ card against CPU), then drives the port's paths with seeded random weights:
   ``.flowrec`` (``--recompute-mean``, ``--write-augmented``) and with the
   ``flownet2-sd-sdhom`` loss at its first episode; the black, eigen and
   shadow transforms on the card against the CPU;
+- the scoring, timing and convergence tools: ``cli.train`` of FlowNetC on
+  a synthetic split at 320x448 b8 and the held-out EPE before and after by
+  ``cli.test`` (trained below 0.6 of initial), ``cli.test`` of FlowNet2,
+  ``tools.overfit`` (the 1/4-resolution EPE below half its start) and
+  ``tools.overfit_cascade`` (its .npz through ``cli.test``), ``cli.time_cmd``
+  at 448x320 b8 and 1024x448 b4 bf16 with their per-stage tables and with
+  ``--backward`` (FlowNet2's joint loss, DispNetC), ``eval_parity``
+  (bfloat16 against float32 .flo files) and ``device_query``, each
+  kernel's launches counted;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -1565,6 +1574,15 @@ def phase_weights(dev: torch.device, card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def main_in_process(main, argv: list) -> tuple[int, str]:
+    """(exit code, standard output) of a CLI's ``main(argv)`` run in this
+    process, so the kernels it launches are counted."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
 def train_cli_in_process(argv: list, counters: tuple) -> tuple[str, tuple]:
     """Run ``cli.train`` in this process, so its kernel launches can be
     counted: (its standard output, the launches of ``counters``)."""
@@ -1573,15 +1591,13 @@ def train_cli_in_process(argv: list, counters: tuple) -> tuple[str, tuple]:
     for k in counters:
         k.launches = 0
     handlers = signal.getsignal(signal.SIGINT), signal.getsignal(signal.SIGHUP)
-    out = io.StringIO()
     try:
-        with contextlib.redirect_stdout(out):
-            rc = train_main(argv)
+        rc, out = main_in_process(train_main, argv)
     finally:
         signal.signal(signal.SIGINT, handlers[0])
         signal.signal(signal.SIGHUP, handlers[1])
     check(rc == 0, f"cli.train {' '.join(argv)}: exit {rc}")
-    return out.getvalue(), tuple(k.launches for k in counters)
+    return out, tuple(k.launches for k in counters)
 
 
 def record_step_times(solver, loader, dev, n: int) -> tuple[float, float]:
@@ -1966,6 +1982,253 @@ def phase_augment(dev: torch.device, card: str, kernels: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return timings
 
+# cli.train iterations of the held-out check: on an H100 the held-out EPE
+# fell to 0.52-0.61 of its start in 600 iterations and to 0.43-0.46 in
+# 800-1000 (PERF.md section 6); the criterion is 0.6
+TOOLS_TRAIN_ITERS = 1000
+TOOLS_OVERFIT_ITERS = 200
+
+
+def write_synth_chairs(root: str, n: int, h: int, w: int, seed: int) -> None:
+    """n FlyingChairs-layout pairs (NNNNNNN-img0.ppm, -img1.ppm, -gt.flo) made
+    by the port's synth_dataset at its easy settings."""
+    from flownet2_tpu_torch.core.flow_io import write_flo, write_ppm
+    from flownet2_tpu_torch.tools.synth_dataset import make_sample
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        img0, img1, flow = make_sample(rng, h, w, n_layers=2, max_shift=5.0)
+        write_ppm(os.path.join(root, f"{i:07d}-img0.ppm"), img0)
+        write_ppm(os.path.join(root, f"{i:07d}-img1.ppm"), img1)
+        write_flo(os.path.join(root, f"{i:07d}-gt.flo"), flow)
+
+
+def last_float(text: str, prefix: str, sep: str = "=") -> float:
+    """The number after the last ``sep`` of the last line of ``text`` starting with ``prefix``."""
+    line = [ln for ln in text.splitlines() if ln.startswith(prefix)][-1]
+    return float(line.rsplit(sep, 1)[1].split()[0])
+
+
+def phase_tools(dev: torch.device, card: str) -> dict:
+    """The scoring, timing and convergence tools, at full width:
+
+    1. held-out EPE: synthetic train (48) and held-out (8) splits at
+       384x512 (synth_dataset's easy settings, max_shift 5, 2 layers);
+       cli.train FlowNetC augmented at 320x448 b8 (Adam, S_short, 2e-4,
+       seed 0), 2 K1, 1 correlation and 1 correlation backward launch a
+       step; cli.test on the held-out split with the initial weights
+       (``random`` is seed 0, the seed training started from) and with the
+       final snapshot: trained < 0.6 x initial;
+    2. cli.test --model flownet2 on the held-out split: 4 K1 and 1
+       correlation launch a forward;
+    3. tools.overfit on 8 synthetic pairs: the 1/4-resolution EPE ends below
+       half its start; tools.overfit_cascade through all five stages, its
+       .npz scored by cli.test;
+    4. cli.time_cmd --breakdown: FlowNet2 at 448x320 b8 f32 and 1024x448
+       b4 bf16 (4 K1, 1 correlation and 0 / 12 K3 launches a forward,
+       counted over the timed forwards and apart over the walk's one; the
+       table's count-weighted sum beside the whole program); --backward
+       for flownet2 (4 K2 a step) and dispnetc at 768x384 b4 (one 1-D
+       forward and backward a step, on a 1-channel disparity target);
+    5. eval_parity: a float32 run dumps its .flo files, a bfloat16 run is
+       compared with them; device_query."""
+    from flownet2_tpu_torch.cli import device_query, eval_parity, time_cmd
+    from flownet2_tpu_torch.cli import test as test_cli
+    from flownet2_tpu_torch.ops.correlation import (
+        correlation_1d_backward_cuda,
+        correlation_1d_cuda,
+        correlation_backward_cuda,
+        correlation_cuda,
+    )
+    from flownet2_tpu_torch.ops.head_conv import head_conv2d_cuda, head_deconv2d_cuda
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
+    from flownet2_tpu_torch.tools import breakdown, overfit, overfit_cascade
+    from flownet2_tpu_torch.tools.synth_dataset import write_split
+
+    counters = {"K1": flow_warp_cuda, "K2": flow_warp_backward_cuda, "corr": correlation_cuda,
+                "corr bwd": correlation_backward_cuda, "K3 conv": head_conv2d_cuda, "K3 deconv": head_deconv2d_cuda,
+                "1-D": correlation_1d_cuda, "1-D bwd": correlation_1d_backward_cuda}
+
+    def reset():
+        for k in counters.values():
+            k.launches = 0
+
+    def counted():
+        got = {name: k.launches for name, k in counters.items()}
+        got["K3"] = got.pop("K3 conv") + got.pop("K3 deconv")
+        return {k: v for k, v in got.items() if v}
+
+    results = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        # 1. held-out EPE before and after training
+        t0 = time.perf_counter()
+        train_rec, eval_rec = os.path.join(tmp, "train.flowrec"), os.path.join(tmp, "eval.flowrec")
+        kw = dict(max_shift=5.0, n_layers=2, log=lambda *_: None)
+        write_split(train_rec, 48, 11, *CHAIRS_FRAME, **kw)
+        write_split(eval_rec, 8, 11 + 999_983, *CHAIRS_FRAME, **kw)
+        print(f"[tools] synth_dataset: 48 train + 8 held-out samples at {CHAIRS_FRAME[1]}x{CHAIRS_FRAME[0]} "
+              f"(max_shift 5, 2 layers) in {time.perf_counter() - t0:.1f} s")
+        snaps = os.path.join(tmp, "snaps")
+        iters = TOOLS_TRAIN_ITERS
+        argv = ["--model", "flownetc", "--dataset", "flowrec", "--data-root", train_rec, "--batch", str(N), "--crop",
+                f"{H}x{W}", "--max-iter", str(iters), "--schedule", "S_short", "--base-lr", "2e-4", "--seed", "0",
+                "--display", str(iters // 4), "--snapshot-dir", snaps, "--snapshot-interval", "0", "--gpu", "0"]
+        t0 = time.perf_counter()
+        train_out, got = train_cli_in_process(argv, (flow_warp_cuda, flow_warp_backward_cuda, correlation_cuda,
+                                                     correlation_backward_cuda))
+        train_s = time.perf_counter() - t0
+        check(got == (2 * iters, 0, iters, iters),
+              f"cli.train flownetc: launches (K1, K2, corr, corr bwd) {got}, expected 2, 0, 1, 1 a step")
+        losses = [line for line in train_out.splitlines() if line.startswith("Iteration")]
+        print(f"[tools] cli.train --model flownetc (augmented) --crop {H}x{W} --batch {N} --max-iter {iters} "
+              f"--schedule S_short --base-lr 2e-4 --seed 0: {train_s:.1f} s; launches (K1, K2, corr, corr bwd) {got}; "
+              f"{'; '.join(losses)}")
+        snapshot = os.path.join(snaps, f"iter_{iters:07d}.npz")
+        epes = {}
+        for label, weights in (("initial", "random"), ("trained", snapshot)):
+            rc, out = main_in_process(test_cli.main, ["--weights", weights, "--model", "flownetc", "--dataset",
+                                                      "flowrec", "--data-root", eval_rec, "--batch", "4", "--gpu", "0"])
+            check(rc == 0, f"cli.test {label}: exit {rc}")
+            epes[label] = last_float(out, "Loss:")
+        ratio = epes["trained"] / epes["initial"]
+        print(f"[tools] cli.test --model flownetc on the 8 held-out samples: EPE {epes['initial']:.4f} with the "
+              f"initial weights, {epes['trained']:.4f} after {iters} iterations (ratio {ratio:.3f}, limit 0.6)")
+        check(ratio < 0.6, f"held-out EPE {epes['trained']} not below 0.6 x the initial {epes['initial']}")
+        results["held_out"] = dict(initial=epes["initial"], trained=epes["trained"], iters=iters, train_s=train_s)
+
+        # 2. FlowNet2 scoring
+        reset()
+        rc, out = main_in_process(test_cli.main, ["--weights", "random", "--model", "flownet2", "--dataset", "flowrec",
+                                                  "--data-root", eval_rec, "--batch", str(N), "--gpu", "0"])
+        got = counted()
+        check(rc == 0 and np.isfinite(last_float(out, "Loss:")), f"cli.test flownet2: exit {rc}: {out[-500:]}")
+        check(got == {"K1": 4, "corr": 1}, f"cli.test flownet2, 1 batch: launches {got}, expected K1 4, corr 1")
+        print(f"[tools] cli.test --model flownet2 (random) --batch {N}, 1 batch: {out.splitlines()[-1]}; "
+              f"launches {got}")
+
+        # 3. overfit and the stage-wise cascade
+        pairs = os.path.join(tmp, "pairs")
+        os.makedirs(pairs)
+        write_synth_chairs(pairs, 8, *CHAIRS_FRAME, seed=SEED + 50)
+        img0, img1, flow = overfit.load_examples(pairs, (H, W))
+        # the overfit tool starts from init_params("flownets", seed=0)
+        start = overfit.quarter_epe(_net("flownets", seed=0).to(dev), {
+            k: torch.as_tensor(v, device=dev) for k, v in (("img0", img0), ("img1", img1), ("flow", flow))})
+        t0 = time.perf_counter()
+        rc, out = main_in_process(overfit.main, ["--data", pairs, "--iters", str(TOOLS_OVERFIT_ITERS), "--chunk", "50",
+                                                 "--cosine", "--gpu", "0"])
+        final = float(out.splitlines()[-1].split(";")[1].split()[0])
+        print(f"[tools] tools.overfit --iters {TOOLS_OVERFIT_ITERS} --cosine on 8 synthetic pairs ({W}x{H}): "
+              f"{time.perf_counter() - t0:.1f} s, exit {rc}; 1/4-resolution EPE {start:.4f} at the start, "
+              f"{final:.4f} at the end (limit half the start); {out.splitlines()[-1]}")
+        check(final < 0.5 * start, f"overfit: 1/4-resolution EPE {final} not below half of {start}")
+        results["overfit"] = dict(start=start, final=final)
+
+        t0 = time.perf_counter()
+        casc = os.path.join(tmp, "cascade")
+        rc, out = main_in_process(overfit_cascade.main, ["--data", pairs, "--iters", "10", "--chunk", "10", "--out",
+                                                         casc, "--gpu", "0"])
+        with open(os.path.join(casc, "results.json")) as f:
+            casc_results = json.load(f)
+        check(list(casc_results["stages"]) == ["c", "s1", "s2", "sd", "fusion"], f"cascade stages {casc_results}")
+        rc_t, scored = main_in_process(test_cli.main, ["--weights", os.path.join(casc, "flownet2_staged.npz"),
+                                                       "--model", "flownet2", "--dataset", "flowrec", "--data-root",
+                                                       eval_rec, "--batch", str(N), "--gpu", "0"])
+        check(rc_t == 0 and np.isfinite(last_float(scored, "Loss:")), f"cli.test on the cascade .npz: {scored[-500:]}")
+        print(f"[tools] tools.overfit_cascade --iters 10 (each of c, s1, s2, sd, fusion): {time.perf_counter() - t0:.1f}"
+              f" s, exit {rc}; cascade EPE {casc_results['init_epe']:.4f} at init, after each stage "
+              f"{', '.join(f'{k} {v['cascade_epe']:.4f}' for k, v in casc_results['stages'].items())}; its .npz "
+              f"through cli.test on the held-out split: {scored.splitlines()[-1]}")
+
+        # 4. timing: counted launches a forward, then the per-stage tables
+        runs = [  # label, arguments, launches per call of the timed function, calls
+            ("448x320 b8 f32", ["--model", "flownet2", "--height", str(H), "--width", str(W), "--batch", str(N)],
+             {"K1": 4, "corr": 1}),
+            ("1024x448 b4 bf16", ["--model", "flownet2", "--height", str(SINTEL_H), "--width", str(SINTEL_W),
+                                  "--batch", str(SINTEL_N), "--dtype", "bfloat16"], {"K1": 4, "corr": 1, "K3": 12}),
+        ]
+        iterations = 10
+        walk = breakdown.walk_stages
+        for label, argv, per_call in runs:
+            # one --breakdown run: the launches of the first call, the 2
+            # warm-ups and the timed forwards are read as the walk starts,
+            # and the walk's own forward is counted apart
+            seen = {}
+
+            def counting_walk(*a, **kw):
+                seen["timed"] = counted()
+                reset()
+                stages = walk(*a, **kw)
+                seen["walk"] = counted()
+                return stages
+
+            reset()
+            breakdown.walk_stages = counting_walk
+            try:
+                rc, out = main_in_process(time_cmd.main, argv + ["--iterations", str(iterations), "--breakdown",
+                                                                 "--gpu", "0"])
+            finally:
+                breakdown.walk_stages = walk
+            calls = iterations + 3  # the first call, 2 warm-ups, the timed ones
+            check(rc == 0 and "vs whole-program above" in out, f"time_cmd --breakdown {label}: {out[-800:]}")
+            check(seen.get("timed") == {k: v * calls for k, v in per_call.items()} and seen.get("walk") == per_call,
+                  f"time_cmd {label}: launches {seen} in {calls} forwards and the walk's one, expected {per_call} a "
+                  f"forward")
+            total = last_float(out, "sum (count-weighted)", sep=")")
+            fwd_ms = last_float(out, "forward:", sep=":")
+            print(f"[tools] time_cmd {' '.join(argv)} --iterations {iterations} --breakdown: {out.splitlines()[0]}; "
+                  f"launches in {calls} forwards {seen['timed']}, in the walk's forward {seen['walk']} ({per_call} a "
+                  f"forward) ({card})")
+            print(f"[tools] the per-stage table ({label}; stage times alone, CUDA events, 3 warm-ups, 10 runs):")
+            for line in out.splitlines()[1:]:
+                print(f"[tools]   {line}")
+            print(f"[tools]   table sum {total:.3f} ms beside the whole program's {fwd_ms:.3f} ms "
+                  f"({100 * (total / fwd_ms - 1):+.1f}%) ({card})")
+            results[f"time {label}"] = dict(forward_ms=fwd_ms, table_sum_ms=total)
+
+        backward_runs = [
+            ("flownet2 448x320 b8", ["--model", "flownet2", "--height", str(H), "--width", str(W), "--batch", str(N)],
+             {"K1": 8, "K2": 4, "corr": 2, "corr bwd": 1}),
+            ("dispnetc 768x384 b4", ["--model", "dispnetc", "--height", str(DISP_TRAIN_H), "--width",
+                                     str(DISP_TRAIN_W), "--batch", str(DISP_TRAIN_N)], {"1-D": 2, "1-D bwd": 1}),
+        ]
+        for label, argv, per_pair in backward_runs:
+            reset()
+            rc, out = main_in_process(time_cmd.main, argv + ["--iterations", str(iterations), "--backward", "--gpu", "0"])
+            got = counted()
+            calls = iterations + 3
+            # a forward call and a forward+backward call each: the forward's kernels twice, the backward's once
+            check(rc == 0 and got == {k: v * calls for k, v in per_pair.items()},
+                  f"time_cmd --backward {label}: launches {got}, expected {per_pair} per forward and fwd+bwd pair")
+            print(f"[tools] time_cmd {' '.join(argv)} --iterations {iterations} --backward: "
+                  f"{'; '.join(out.splitlines()[:2])}; launches {got} ({card})")
+            results[f"time backward {label}"] = out.splitlines()[:2]
+
+        # 5. eval_parity: float32 dumps, bfloat16 compared with them; device_query
+        lst, dumped = os.path.join(tmp, "pairs.txt"), os.path.join(tmp, "f32")
+        with open(lst, "w") as f:
+            f.writelines(f"{pairs}/{i:07d}-img0.ppm {pairs}/{i:07d}-img1.ppm {pairs}/{i:07d}-gt.flo\n" for i in range(8))
+        weights = os.path.join(casc, "flownet2_staged.npz")
+        rc, out = main_in_process(eval_parity.main, ["--model", "flownet2", "--weights", weights, "--list", lst,
+                                                     "--out-dir", dumped, "--gpu", "0"])
+        f32 = json.loads(out.splitlines()[-1])
+        with open(lst + ".f32", "w") as f:
+            f.writelines(f"{pairs}/{i:07d}-img0.ppm {pairs}/{i:07d}-img1.ppm {dumped}/{i:07d}-gt.flo\n" for i in range(8))
+        rc2, out = main_in_process(eval_parity.main, ["--model", "flownet2", "--weights", weights, "--list",
+                                                      lst + ".f32", "--dtype", "bfloat16", "--gpu", "0"])
+        bf16 = json.loads(out.splitlines()[-1])
+        check(rc == rc2 == 0 and f32["pairs"] == bf16["pairs"] == 8, f"eval_parity: {f32}, {bf16}")
+        print(f"[tools] eval_parity --model flownet2 (the cascade .npz) on the 8 pairs at {CHAIRS_FRAME[1]}x"
+              f"{CHAIRS_FRAME[0]}: f32 against the ground truth {json.dumps(f32)}; bf16 against the f32 .flo files "
+              f"{json.dumps(bf16)}")
+        rc, out = main_in_process(device_query.main, [])
+        check(rc == 0 and torch.cuda.get_device_name(0) in out, f"device_query: {out}")
+        print("[tools] device_query: " + " | ".join(out.strip().splitlines()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
 
 def main() -> int:
     name, smi = phase_device()
@@ -1994,6 +2257,7 @@ def main() -> int:
     timed("weights", phase_weights, dev, smi)
     timed("records", phase_records, dev, smi)
     timed("augment", phase_augment, dev, smi, kernels)
+    timed("tools", phase_tools, dev, smi)
     print(f"[times] phases (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; "
           f"all {time.perf_counter() - t0:.1f}")
     order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",

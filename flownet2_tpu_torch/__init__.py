@@ -3,7 +3,8 @@
 The PyTorch counterpart of ``flownet2_tpu`` (the JAX package, which stays the
 reference). Module names follow the JAX package:
 
-- ``ops``        — leaky ReLU, channel norm, linear resample, the NaN-aware
+- ``ops``        — leaky ReLU, channel norm, linear and nearest resample,
+                   Accum, the NaN-aware
                    downsample, the losses, FlowWarp and Correlation (each
                    with hand-written CUDA kernels for its forward and
                    backward), the full-resolution head convs and the fused
@@ -27,8 +28,12 @@ reference). Module names follow the JAX package:
 - ``data``       — the FlyingChairs, ChairsSDHom, FlyingThings3D, Sintel and
                    KITTI layouts, ``.flowrec`` records, LMDB and LevelDB
                    (numpy only), the prefetching loader.
-- ``cli``        — ``run_flownet``, ``run_flownet_many``, ``train`` and
-                   ``convert_dataset``, argument-compatible with the JAX CLIs.
+- ``cli``        — ``run_flownet``, ``run_flownet_many``, ``train``,
+                   ``convert_dataset``, ``test``, ``time_cmd``, ``eval_parity``
+                   and ``device_query``, argument-compatible with the JAX CLIs.
+- ``tools``      — the synthetic dataset, the per-stage breakdown, the overfit
+                   and stage-wise cascade runs, summarize, flow_vis, the log
+                   parser and plotter, the artifact writers.
 
 This package imports neither jax nor the JAX package.
 """

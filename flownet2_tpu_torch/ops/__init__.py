@@ -2,7 +2,9 @@
 
 - ``activations``  — leaky ReLU.
 - ``channel_norm`` — per-pixel L2 norm over channels, stabilized backward.
-- ``resample``     — linear resize with the reference's offsets, as two matmuls.
+- ``resample``     — linear resize with the reference's offsets, as two matmuls;
+                     nearest as a gather.
+- ``accum``        — the Accum layer: inputs resized to one size, concatenated.
 - ``downsample``   — the NaN-aware area downsample of ground truth.
 - ``losses``       — L1/EPE, Lpq and the multi-scale loss.
 - ``warp``         — FlowWarp: CUDA kernels (forward, backward) + plain PyTorch version.

@@ -1,14 +1,16 @@
-"""Linear (triangle) resize with the reference's swapped half-pixel offsets.
+"""Linear (triangle) and nearest resize with the reference's swapped half-pixel offsets.
 
-Counterpart of the linear path of flownet2_tpu/ops/resample.py (reference
-resample_layer.cu). The source coordinate of an output pixel is
+Counterpart of the linear and nearest paths of flownet2_tpu/ops/resample.py
+(reference resample_layer.cu). The source coordinate of an output pixel is
 
     x_in = x_out * fx + fy/2 - 0.5,    y_in = y_out * fy + fx/2 - 0.5
 
 (fy in the x formula and fx in the y formula, an upstream quirk), so
 ``F.interpolate`` does not match. The op is separable: per axis a dense
 weight matrix is built in numpy, and the resize is two matmuls,
-``out = W_h @ x @ W_w^T``, in float32.
+``out = W_h @ x @ W_w^T``, in float32. Nearest picks the source pixel
+round(x_in) (C round, half away from zero), clamped inside the input: a
+gather of whole rows and columns, which keeps the dtype and the values.
 """
 
 from __future__ import annotations
@@ -67,17 +69,35 @@ def _axis_weights_on(
         return torch.from_numpy(_axis_weights(in_size, out_size, f, f_other, antialias)).to(device)
 
 
-def resample(x: torch.Tensor, out_height: int, out_width: int, *, antialias: bool = True) -> torch.Tensor:
-    """Resize (..., H, W) to (..., out_height, out_width), linear.
+@lru_cache(maxsize=256)
+def nearest_indices(in_size: int, out_size: int, f: float, f_other: float) -> np.ndarray:
+    """(out_size,) int64 source index of each output pixel on one axis: the
+    nearest sample round(x_in), clamped in bounds (the reference would read
+    past the last pixel; the JAX package clamps too)."""
+    x_in = np.arange(out_size, dtype=np.float64) * f + f_other / 2.0 - 0.5
+    return np.clip(_c_round(x_in).astype(np.int64), 0, in_size - 1)
 
-    ``antialias`` widens the kernel when downscaling (resample_layer.cu:
-    179-180). Computes in float32 and returns the input dtype.
+
+def resample(
+    x: torch.Tensor, out_height: int, out_width: int, *, antialias: bool = True, method: str = "linear"
+) -> torch.Tensor:
+    """Resize (..., H, W) to (..., out_height, out_width).
+
+    ``method`` "linear" computes in float32 and returns the input dtype;
+    ``antialias`` widens its kernel when downscaling (resample_layer.cu:
+    179-180). "nearest" gathers the source pixels at ``nearest_indices``.
     """
+    if method not in ("linear", "nearest"):
+        raise ValueError(f"unsupported resample method {method!r}")
     in_h, in_w = x.shape[-2], x.shape[-1]
     if (in_h, in_w) == (out_height, out_width):
         return x
     fx = in_w / out_width
     fy = in_h / out_height
+    if method == "nearest":
+        rows = torch.from_numpy(nearest_indices(in_h, out_height, fy, fx)).to(x.device)
+        cols = torch.from_numpy(nearest_indices(in_w, out_width, fx, fy)).to(x.device)
+        return x.index_select(-2, rows).index_select(-1, cols)
     w_h = _axis_weights_on(in_h, out_height, fy, fx, antialias, x.device)
     w_w = _axis_weights_on(in_w, out_width, fx, fy, antialias, x.device)
     out = torch.matmul(w_h, x.float())

@@ -7,9 +7,10 @@ reference src/caffe/solver.cpp).
 - ``Solver.step`` keeps the loss on the device and synchronizes once every
   ``sync_bound`` steps, so the host never runs unboundedly ahead;
 - ``Solver.solve``: display of the loss smoothed over the last
-  ``AVERAGE_LOSS`` iterations (solver.cpp's ``average_loss``), snapshots
-  every ``snapshot_interval``, and the SIGINT/SIGHUP actions (stop,
-  snapshot) checked once per iteration;
+  ``AVERAGE_LOSS`` iterations (solver.cpp's ``average_loss``), a test
+  metric every ``test_interval`` (``test_fn(net)``, solver.cpp:327-410),
+  snapshots every ``snapshot_interval``, and the SIGINT/SIGHUP actions
+  (stop, snapshot) checked once per iteration;
 - ``loss_schedule``: an Lpq episode schedule (``ops/losses.LpqSchedule``);
   the loss takes the episode of each iteration, and the step is rebuilt
   when it changes (the reference swaps the Lpq exponents at episode
@@ -89,7 +90,12 @@ class Solver:
 
     ``loss_schedule``: an object with ``.at(iteration) -> episode`` (an
     ``LpqSchedule``); each step then calls ``loss_fn(net, batch,
-    episode=...)`` with the episode of the iteration it runs."""
+    episode=...)`` with the episode of the iteration it runs.
+
+    ``test_fn(net) -> float``: every ``test_interval`` iterations
+    :meth:`solve` logs ``Iteration N, test metric = x`` (e.g. a held-out
+    EPE, as ``cli/test.py`` scores it) through :meth:`test`, which a loop
+    of its own over :meth:`step` calls too (``tools/overfit.py``)."""
 
     def __init__(
         self,
@@ -103,6 +109,8 @@ class Solver:
         snapshot_interval: int = 0,
         display: int = 100,
         loss_schedule: Optional[Any] = None,
+        test_fn: Optional[Callable[[nn.Module], float]] = None,
+        test_interval: int = 0,
     ):
         self.config = config
         self.device = torch.device(device)
@@ -120,6 +128,8 @@ class Solver:
         self.snapshot_dir = snapshot_dir
         self.snapshot_interval = snapshot_interval
         self.display = display
+        self.test_fn = test_fn
+        self.test_interval = test_interval
         self._loss_window: deque = deque(maxlen=AVERAGE_LOSS)
         self._requested_action = None
         # one host sync per sync_bound steps bounds how far the host runs ahead
@@ -177,6 +187,13 @@ class Solver:
             float(loss)
         return loss, aux
 
+    def test(self, log: Callable[[str], None] = print) -> float:
+        """Score the net with ``test_fn`` and log ``Iteration N, test
+        metric = x``, the line tools/parse_log.py reads."""
+        metric = self.test_fn(self.net)
+        log(f"Iteration {self.iteration}, test metric = {metric:.6f}")
+        return metric
+
     def solve(
         self,
         data_iter: Iterator,
@@ -207,6 +224,8 @@ class Solver:
                 t0 = time.time()
                 log(f"Iteration {it}, loss = {self.smoothed_loss:.6f} ({rate:.2f} iter/s)")
                 self.history.append((it, self.smoothed_loss))
+            if self.test_fn and self.test_interval and it % self.test_interval == 0:
+                self.test(log)
             if self.snapshot_interval and self.snapshot_dir and it % self.snapshot_interval == 0:
                 self.snapshot()
             if self._requested_action == "stop":

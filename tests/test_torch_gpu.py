@@ -1153,3 +1153,64 @@ def test_pixel_transforms_on_card_match_cpu(cuda, transform):
         assert err <= (1e-5 if transform == "eigen" else 1e-6), err
     if transform == "black":
         assert ref[1].isnan().any() and (ref[0][1] == 0).all()
+
+
+def _cli_output(main, argv) -> tuple[int, str]:
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def test_cli_test_on_card_matches_cpu_per_batch(cuda, no_tf32, tmp_path):
+    """cli.test --model flownet2 (f32, one .npz) on the card and on the CPU
+    over a synthetic split at 128x192 (adapted to 128x192): every batch's
+    EPE within 1e-3 px; the card's run launches 4 K1 and 1 correlation a
+    forward."""
+    from flownet2_tpu_torch.checkpoint import save_params
+    from flownet2_tpu_torch.cli import test as test_cli
+    from flownet2_tpu_torch.tools.synth_dataset import write_split
+
+    rec = str(tmp_path / "eval.flowrec")
+    write_split(rec, 4, 3, 128, 192, log=lambda *_: None, max_shift=5.0, n_layers=2)
+    npz = str(tmp_path / "w.npz")
+    save_params(npz, init_params("flownet2", seed=6))
+    argv = ["--weights", npz, "--model", "flownet2", "--dataset", "flowrec", "--data-root", rec, "--batch", "2"]
+    flow_warp_cuda.launches = correlation_cuda.launches = 0
+    rc, card = _cli_output(test_cli.main, argv + ["--gpu", "0"])
+    assert rc == 0 and (flow_warp_cuda.launches, correlation_cuda.launches) == (8, 2)
+    rc, cpu = _cli_output(test_cli.main, argv + ["--device", "cpu"])
+    assert rc == 0
+
+    def epes(out):
+        return [float(line.rsplit("=", 1)[1]) for line in out.splitlines() if line.startswith("Batch ")]
+
+    assert len(epes(card)) == 2
+    np.testing.assert_allclose(epes(card), epes(cpu), atol=1e-3)
+
+
+def test_time_cmd_breakdown_on_card_has_the_cpu_walks_stages(cuda):
+    """time_cmd --breakdown on the card at 128x192 b2: one row per stage of
+    the CPU walk with its count, finite times, and the walk on the card
+    equal to the walk on the CPU (names, counts, shapes)."""
+    from flownet2_tpu_torch.cli import time_cmd
+    from flownet2_tpu_torch.tools.breakdown import walk_stages
+
+    net = load_into(FlowNet2(), init_params("flownet2", seed=0))
+    img = torch.zeros(2, 3, 128, 192)
+    cpu = [(st.name, st.count, st.spatial()) for st in walk_stages("flownet2", net, img, img)]
+    net = net.to(cuda)
+    card = [(st.name, st.count, st.spatial()) for st in walk_stages("flownet2", net, img.to(cuda), img.to(cuda))]
+    assert card == cpu
+    rc, out = _cli_output(time_cmd.main, ["--model", "flownet2", "--height", "128", "--width", "192", "--batch", "2",
+                                          "--iterations", "2", "--breakdown", "--backward", "--gpu", "0"])
+    assert rc == 0
+    lines = out.splitlines()
+    assert lines[0].startswith("forward: ") and lines[1].startswith("forward+backward: ")
+    rows = [line.split() for line in lines[3:-1]]
+    assert [(r[0], int(r[2])) for r in rows] == [(name, count) for name, count, _ in cpu]
+    assert all(np.isfinite(float(r[3])) and float(r[3]) > 0 for r in rows)
+    assert lines[-1].startswith("sum (count-weighted)")
