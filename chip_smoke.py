@@ -62,8 +62,16 @@ card against CPU), then drives the port's paths with seeded random weights:
   ``tools.overfit_cascade`` (its .npz through ``cli.test``), ``cli.time_cmd``
   at 448x320 b8 and 1024x448 b4 bf16 with their per-stage tables and with
   ``--backward`` (FlowNet2's joint loss, DispNetC), ``eval_parity``
-  (bfloat16 against float32 .flo files) and ``device_query``, each
-  kernel's launches counted;
+  (bfloat16 against float32 .flo files), ``device_query`` and
+  ``tools.diag.bf16_parity`` on the cascade's weights, each kernel's
+  launches counted;
+- data-parallel training, at FlowNetC 448x320, global batch 8, float32,
+  Adam, augmented from 512x384 sources: a Solver in a world-1 NCCL group
+  against the plain Solver (parameters equal, the same launches a step),
+  2 ranks over gloo sharing the card (4 pairs each) against one process
+  on the 8 (noise 0; FlowNetC and the flownet2-s1 stage loss), the flat
+  gradient all-reduce's time, and ``cli.train --gpu all`` on the one card
+  with ``--gpu 0,1`` refused;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -2031,7 +2039,10 @@ def phase_tools(dev: torch.device, card: str) -> dict:
        for flownet2 (4 K2 a step) and dispnetc at 768x384 b4 (one 1-D
        forward and backward a step, on a 1-channel disparity target);
     5. eval_parity: a float32 run dumps its .flo files, a bfloat16 run is
-       compared with them; device_query."""
+       compared with them; device_query;
+    6. tools.diag.bf16_parity on the cascade's .npz: its three lines (f32
+       and bf16 GT-EPE on 8 synthetic pairs, their divergence), 4 K1 and 1
+       correlation launch a forward."""
     from flownet2_tpu_torch.cli import device_query, eval_parity, time_cmd
     from flownet2_tpu_torch.cli import test as test_cli
     from flownet2_tpu_torch.ops.correlation import (
@@ -2043,6 +2054,7 @@ def phase_tools(dev: torch.device, card: str) -> dict:
     from flownet2_tpu_torch.ops.head_conv import head_conv2d_cuda, head_deconv2d_cuda
     from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
     from flownet2_tpu_torch.tools import breakdown, overfit, overfit_cascade
+    from flownet2_tpu_torch.tools.diag import bf16_parity
     from flownet2_tpu_torch.tools.synth_dataset import write_split
 
     counters = {"K1": flow_warp_cuda, "K2": flow_warp_backward_cuda, "corr": correlation_cuda,
@@ -2225,7 +2237,263 @@ def phase_tools(dev: torch.device, card: str) -> dict:
         rc, out = main_in_process(device_query.main, [])
         check(rc == 0 and torch.cuda.get_device_name(0) in out, f"device_query: {out}")
         print("[tools] device_query: " + " | ".join(out.strip().splitlines()))
+
+        # 6. the bf16 parity tool on the cascade's .npz
+        reset()
+        rc, out = main_in_process(bf16_parity.main, ["--weights", weights, "--synth", "--size", f"{H}x{W}",
+                                                     "--gpu", "0"])
+        lines = out.strip().splitlines()
+        epes = [last_float(out, "f32  GT-EPE", sep=":"), float(lines[1].split(":")[1].split()[0])]
+        check(rc == 0 and len(lines) == 3 and all(np.isfinite(epes)) and counted() == {"K1": 8, "corr": 2},
+              f"bf16_parity: exit {rc}, launches {counted()}: {out[-600:]}")
+        print(f"[tools] tools.diag.bf16_parity --model flownet2 (the cascade .npz) --synth --size {H}x{W} (8 pairs), "
+              f"launches {counted()} ({card}):")
+        for line in lines:
+            print(f"[tools]   {line}")
+        results["bf16_parity"] = dict(f32_epe=epes[0], bf16_epe=epes[1], lines=lines)
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
+
+# [dp]: FlowNetC at 448x320, global batch 8, float32, Adam, augmented from
+# 512x384 sources (noise 0 where ranks are compared with one process)
+DP_STEPS = 3
+
+
+def dp_loaders(chairs: str, shard: tuple[int, int], noise: bool):
+    """The keyed loader of the global batch of N over ``chairs``: this
+    rank's rows of each augmented batch (``shard`` (rank, world))."""
+    from flownet2_tpu_torch.data import BatchLoader, FlyingChairs
+    from flownet2_tpu_torch.data.augment_pipeline import FlowNetAugConfig, make_flownet_augmenter
+    from flownet2_tpu_torch.ops.augment import EffectAugSpec
+
+    config = FlowNetAugConfig() if noise else FlowNetAugConfig(effect=EffectAugSpec())
+    return iter(BatchLoader(FlyingChairs(chairs), N, shuffle_seed=SEED, shard=shard,
+                            transform=make_flownet_augmenter(H, W, config)))
+
+
+def dp_solver(loss_key: str, rank: int, group=None, dev=None, iter_size: int = 1):
+    """A Solver of ``loss_key`` (flownetc, or flownet2-s1 on a FlowNet2)
+    with the augmented objective, seeded weights, Adam at S_long's rate."""
+    from flownet2_tpu_torch.data.augment_pipeline import make_augmented_loss
+    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import LOSSES, trainable_module
+
+    net = _net("flownet2" if loss_key == "flownet2-s1" else "flownetc")
+    loss = make_augmented_loss(LOSSES[loss_key], H, W, seed=SEED, rank=rank)
+    config = SolverConfig(solver_type="adam", lr_policy="fixed", base_lr=FLOWNET_SCHEDULES["S_long"]["base_lr"],
+                          momentum=0.9, momentum2=0.999, iter_size=iter_size)
+    return Solver(config, loss, net, device=dev, group=group, trainable=trainable_module(net, loss_key))
+
+
+def dp_run(solver, loader, steps: int, counters, micro: int = 1) -> dict:
+    """``steps`` steps from ``loader`` (each batch cut into ``micro``
+    micro-batches of consecutive rows, for ``iter_size`` ``micro``):
+    losses, the launches of ``counters`` counted from 0 around the steps,
+    ms a step by the host clock after the first, the trainable gradients
+    of the first step and the trainable parameters after the last."""
+    for k in counters:
+        k.launches = 0
+    losses, t0, grads = [], None, None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        batch = next(loader)
+        if micro > 1:
+            batch = {k: v.reshape(micro, v.shape[0] // micro, *v.shape[1:]) for k, v in batch.items()}
+        losses.append(solver.step(batch)[0].item())
+        if i == 0:
+            grads = {k: p.grad.cpu().numpy().copy() for k, p in solver.net.named_parameters() if p.requires_grad}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (steps - 1) * 1e3 if steps > 1 else float("nan")
+    params = {k: p.detach().cpu().numpy().copy() for k, p in solver.net.named_parameters() if p.requires_grad}
+    return dict(losses=losses, launches=launch_counts(counters), ms=ms, grads=grads, params=params)
+
+
+def _dp_rank(group, chairs: str) -> dict:
+    """A rank of the 2-process gloo run on one card: FlowNetC for DP_STEPS
+    steps and one flownet2-s1 step on this rank's rows, noise 0."""
+    import hashlib
+
+    from flownet2_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
+
+    counters = (flow_warp_cuda, flow_warp_backward_cuda, correlation_cuda, correlation_backward_cuda)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    for key, steps in (("flownetc", DP_STEPS), ("flownet2-s1", 1)):
+        run = dp_run(dp_solver(key, group.rank, group), dp_loaders(chairs, (group.rank, group.world), False), steps,
+                     counters)
+        digest = hashlib.sha1(b"".join(run["params"][k].tobytes() for k in sorted(run["params"]))).hexdigest()
+        if not group.is_main:
+            run = dict(run, grads=None, params=None)
+        out[key] = dict(run, digest=digest)
+    return out
+
+
+def rel_errors(got: dict, ref: dict, start: dict | None = None) -> dict:
+    """Relative L2 of ``got`` against ``ref`` (of their updates from
+    ``start``, where given): over all tensors together and for the median
+    tensor."""
+    per, diff, norm = [], 0.0, 0.0
+    for k, r in ref.items():
+        want, have = (r, got[k]) if start is None else (r - start[k], got[k] - start[k])
+        d, n = float(np.sum((have - want) ** 2)), float(np.sum(want ** 2))
+        per.append((d / n) ** 0.5 if n else 0.0)
+        diff, norm = diff + d, norm + n
+    return {"all": (diff / norm) ** 0.5, "median": statistics.median(per), "tensors": len(per)}
+
+
+def phase_dp(dev: torch.device, card: str) -> dict:
+    """Data-parallel training (``parallel``; Solver's group; cli.train --gpu)
+    at full width on the one card of this host:
+
+    1. world size 1 over NCCL against the plain Solver: DP_STEPS augmented
+       FlowNetC steps, cuDNN deterministic; parameters equal (max abs 0,
+       or within the spread of two plain runs, both printed) and the same
+       launches a step; the flat FlowNetC gradient all-reduce timed at
+       world 1 by CUDA events, and the group step beside the plain one
+       (single steps in turns);
+    2. 2 ranks over gloo on cuda:0 (two processes sharing the card, 4 pairs
+       each) against one process on the global batch of 8, noise 0, cuDNN
+       deterministic, for DP_STEPS FlowNetC steps and one flownet2-s1
+       step: loss rtol 1e-4
+       and the first step's gradients (relative L2 of all tensors and of
+       the median tensor within 1e-3) against b8; the updates (the same
+       limits) against one process at iter_size 2 on the ranks' halves,
+       since Adam turns b8's rounding against 2 x b4 into about 1% of an
+       update (printed beside); each rank's launches equal the plain
+       step's; ms a step (two processes on one card: not a multi-card
+       number);
+    3. cli.train --gpu all trains on the one card; --gpu 0,1 is refused
+       ("1 present")."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch.cli.train import main as train_main
+    from flownet2_tpu_torch.ops.correlation import correlation_backward_cuda, correlation_cuda
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
+    from flownet2_tpu_torch.parallel import init_group, spawn
+    from flownet2_tpu_torch.parallel.mesh import free_address
+
+    counters = (flow_warp_cuda, flow_warp_backward_cuda, correlation_cuda, correlation_backward_cuda)
+    results, t_phase = {}, time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        chairs = os.path.join(tmp, "chairs")
+        os.makedirs(chairs)
+        write_chairs(chairs, 2 * N, *CHAIRS_FRAME)
+
+        # 1. world 1 over NCCL against the plain Solver
+        torch.backends.cudnn.deterministic = True
+        plain = [dp_run(dp_solver("flownetc", 0, dev=dev), dp_loaders(chairs, (0, 1), True), DP_STEPS, counters)
+                 for _ in range(2)]
+        group = init_group(0, 1, dev, free_address(), backend="nccl")
+        try:
+            grouped = dp_run(dp_solver("flownetc", 0, group), dp_loaders(chairs, (0, 1), True), DP_STEPS, counters)
+            flat = torch.randn(sum(v.size for v in grouped["params"].values()), device=dev)
+            allreduce_ms = cuda_ms(lambda: dist.all_reduce(flat), warmup=3, runs=20)
+            # the world-1 group step beside the plain one, single steps in turns, cuDNN's default algorithms
+            torch.backends.cudnn.deterministic = deterministic
+            resident = {k: torch.as_tensor(v, device=dev) for k, v in next(dp_loaders(chairs, (0, 1), True)).items()}
+            solvers = [dp_solver("flownetc", 0, dev=dev), dp_solver("flownetc", 0, group)]
+            step_ms = interleaved_ms([lambda sv=sv: sv.step(resident) for sv in solvers], rounds=20)
+            del solvers, resident
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = True
+        paired = [g - p for p, g in zip(*step_ms)]
+        spread = max(float(np.abs(plain[0]["params"][k] - plain[1]["params"][k]).max()) for k in plain[0]["params"])
+        diff = max(float(np.abs(grouped["params"][k] - plain[0]["params"][k]).max()) for k in plain[0]["params"])
+        print(f"[dp] world 1 over NCCL against the plain Solver, {DP_STEPS} augmented FlowNetC steps {W}x{H} b{N} "
+              f"f32 Adam, cuDNN deterministic: parameters max abs diff {diff:.3g} (two plain runs {spread:.3g}); "
+              f"losses {grouped['losses']} vs {plain[0]['losses']}; launches (warp, warp bwd, corr, corr bwd) in "
+              f"{DP_STEPS} steps {grouped['launches']} vs plain {plain[0]['launches']}; ms a step {grouped['ms']:.3f} "
+              f"vs plain {plain[0]['ms']:.3f} (host clock) ({card})")
+        check(diff <= spread, f"world 1 over NCCL: parameters differ by {diff} from the plain Solver's "
+                              f"(spread {spread})")
+        check(grouped["launches"] == plain[0]["launches"] and grouped["launches"][2] == DP_STEPS,
+              f"world 1 launches {grouped['launches']} vs plain {plain[0]['launches']}")
+        print(f"[dp] all_reduce of the flat FlowNetC gradient ({flat.numel()} float32, {flat.numel() * 4 / 1e6:.1f} MB) "
+              f"at world 1 over NCCL: {allreduce_ms:.4f} ms (CUDA events, median of 20) ({card})")
+        print(f"[times] train step flownetc f32 {W}x{H} b{N} augmented, 20 single steps each in turns on a resident "
+              f"batch, median [quartiles] ms: plain Solver {quartiles(step_ms[0])}, world-1 NCCL group "
+              f"{quartiles(step_ms[1])}, paired difference {quartiles(paired)} "
+              f"({100 * statistics.median(paired) / statistics.median(step_ms[0]):.1f}%) ({card})")
+        results["world1"] = dict(max_abs_diff=diff, plain_spread=spread, allreduce_ms=allreduce_ms,
+                                 launches=grouped["launches"], plain_ms=statistics.median(step_ms[0]),
+                                 group_ms=statistics.median(step_ms[1]), paired_ms=statistics.median(paired))
+        del plain, grouped, flat
+
+        # 2. two ranks over gloo on cuda:0 against one process on the global
+        # batch: at b8 (the gradients), and at iter_size 2 on the ranks'
+        # halves (the updates; Adam turns the batch-size rounding of b8
+        # against 2 x b4 into about 1% of the update, in one process too),
+        # all with cuDNN's deterministic algorithms
+        t0 = time.perf_counter()
+        ranks = spawn(_dp_rank, [dev, dev], chairs, backend="gloo", join_timeout=600)
+        spawn_s = time.perf_counter() - t0
+        for key, steps in (("flownetc", DP_STEPS), ("flownet2-s1", 1)):
+            refs = {}
+            for micro in (1, 2):
+                solver = dp_solver(key, 0, dev=dev, iter_size=micro)
+                start = {k: p.detach().cpu().numpy().copy() for k, p in solver.net.named_parameters()
+                         if p.requires_grad}
+                refs[micro] = dp_run(solver, dp_loaders(chairs, (0, 1), False), steps, counters, micro=micro)
+                del solver
+            got = ranks[0][key]
+            check(ranks[1][key]["digest"] == got["digest"], f"{key}: the two ranks' parameters differ")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], refs[1]["losses"]))
+            g8 = rel_errors(got["grads"], refs[1]["grads"])
+            u2 = rel_errors(got["params"], refs[2]["params"], start)
+            u8 = rel_errors(got["params"], refs[1]["params"], start)
+            spread = rel_errors(refs[2]["params"], refs[1]["params"], start)
+            print(f"[dp] 2 ranks over gloo on cuda:0 (4 pairs each) against one process, {key}, {steps} step(s), "
+                  f"noise 0: losses {got['losses']} vs b{N} {refs[1]['losses']} (rel {rel:.3g}, limit 1e-4); first "
+                  f"step's gradients against b{N}, {g8['tensors']} tensors: relative L2 of all {g8['all']:.3g}, "
+                  f"median tensor {g8['median']:.3g} (limits 1e-3); updates after {steps} step(s) against one process "
+                  f"at iter_size 2 on the same halves: all {u2['all']:.3g}, median {u2['median']:.3g} (limits 1e-3); "
+                  f"against b{N}: all {u8['all']:.3g}, median {u8['median']:.3g}, beside iter_size 2 against b{N} in "
+                  f"one process: all {spread['all']:.3g}, median {spread['median']:.3g}; launches (warp, warp bwd, "
+                  f"corr, corr bwd) rank 0 {got['launches']}, rank 1 {ranks[1][key]['launches']}, one process "
+                  f"{refs[1]['launches']}")
+            check(rel <= 1e-4, f"{key}: 2-rank loss rel err {rel}")
+            check(g8["all"] <= 1e-3 and g8["median"] <= 1e-3, f"{key}: 2-rank gradients against b{N} {g8}")
+            check(u2["all"] <= 1e-3 and u2["median"] <= 1e-3, f"{key}: 2-rank updates against iter_size 2 {u2}")
+            check(got["launches"] == ranks[1][key]["launches"] == refs[1]["launches"] and refs[1]["launches"][0] > 0,
+                  f"{key}: launches rank 0 {got['launches']}, rank 1 {ranks[1][key]['launches']}, one process "
+                  f"{refs[1]['launches']}")
+            results[key] = dict(loss_rel=rel, grad_rel_l2=g8["all"], grad_median=g8["median"],
+                                update_vs_iter2=u2["all"], update_vs_b8=u8["all"], iter2_vs_b8=spread["all"],
+                                ms=got["ms"], one_process_ms=refs[1]["ms"], launches=got["launches"])
+            del refs
+        print(f"[dp] 2-rank gloo FlowNetC step on one card (two processes sharing cuda:0, the gradients through the "
+              f"host; not a multi-card number): {ranks[0]['flownetc']['ms']:.3f} ms a step on rank 0 (host clock, "
+              f"steps 2-{DP_STEPS}) vs {results['flownetc']['one_process_ms']:.3f} one process at b{N}; the "
+              f"spawn, both ranks' runs included: {spawn_s:.1f} s ({card})")
+        del ranks
+
+        # 3. the CLI: --gpu all on this host's one card; --gpu 0,1 refused
+        argv = ["--model", "flownetc", "--data-root", chairs, "--batch", str(N), "--crop", f"{H}x{W}", "--max-iter",
+                "3", "--display", "1", "--snapshot-dir", "", "--gpu", "all"]
+        out, got = train_cli_in_process(argv, counters)
+        check("on cuda:0" in out and "Iteration 3, loss" in out and got == (6, 0, 3, 3),
+              f"cli.train --gpu all: launches {got}: {out[-600:]}")
+        try:
+            main_in_process(train_main, argv[:-1] + ["0,1"])
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+        check(refused is not None and "1 present" in refused, f"cli.train --gpu 0,1: {refused}")
+        print(f"[dp] cli.train --gpu all (this host's {torch.cuda.device_count()} card): 3 steps, launches (warp, warp "
+              f"bwd, corr, corr bwd) {got}, {out.splitlines()[0]}; --gpu 0,1 refused: {refused}")
+        print(f"[dp] the phase: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
     return results
 
@@ -2258,6 +2526,7 @@ def main() -> int:
     timed("records", phase_records, dev, smi)
     timed("augment", phase_augment, dev, smi, kernels)
     timed("tools", phase_tools, dev, smi)
+    timed("dp", phase_dp, dev, smi)
     print(f"[times] phases (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; "
           f"all {time.perf_counter() - t0:.1f}")
     order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",

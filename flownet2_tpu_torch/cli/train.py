@@ -7,7 +7,7 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
         [--write-augmented DIR] [--loss KEY] [--schedule S_long] [--base-lr LR]
         [--solver adam] [--batch 8] [--crop 320x448] [--iter-size 1] [--max-iter N]
         [--weights W] [--snapshot DIR/iter_NNNNNNN] [--snapshot-dir DIR]
-        [--snapshot-interval N] [--display N] [--seed S] [--gpu N | --device cpu]
+        [--snapshot-interval N] [--display N] [--seed S] [--gpu N|all|i,j | --device cpu]
 
 - augmentation is on by default, as the paper trains: the loader hands
   over batches at source resolution with the sampled coefficients, and the
@@ -37,10 +37,21 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
   optimizer state and iteration;
 - ``--gpu N`` trains on ``cuda:N``; ``--device`` names a device instead
   (``cpu`` for tests). Without a card and without ``--device`` the CLI
-  exits with an error: it never falls back to the CPU.
+  exits with an error: it never falls back to the CPU;
+- ``--gpu all`` or a list ``i,j`` trains data-parallel, one process per
+  card over NCCL (``parallel``): ``--batch`` is per card, so the global
+  batch is ``--batch`` x cards (the reference's ``caffe train -gpu 0,1``,
+  docs/multigpu.md:11). The loader is keyed: each rank decodes and
+  augments its rows of global batch k, whichever thread makes it. The
+  gradients cross the cards in one flat all-reduce a step; rank 0 logs,
+  writes snapshots and, with ``--write-augmented``, the global batch,
+  gathered at display steps. One picked card trains in this process. A
+  card asked for and not present, or a duplicate, exits with an error,
+  and so does the whole run when a rank fails.
 
-Refused with a message: more than one card (``--gpu all`` or a list),
-``--device-cache`` and ``--steps-per-dispatch`` (not in the port yet);
+Refused with a message: ``--device-cache`` and ``--steps-per-dispatch``
+(not in the port; the JAX CLI refuses the device cache with several
+devices too);
 ``--model dispnetc`` without ``--no-augment`` (the augmentation transforms
 2-channel flow, not 1-channel disparity; so does the JAX package's); and
 ``--recompute-mean`` with ``--iter-size`` above 1.
@@ -51,6 +62,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--schedule", default="S_long", help="S_long|S_short|S_fine")
     p.add_argument("--base-lr", type=float, default=None, help="override the schedule's base_lr")
     p.add_argument("--solver", default="adam", help="sgd|nesterov|adagrad|rmsprop|adadelta|adam")
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8, help="batch per card: the global batch is --batch x cards")
     p.add_argument("--crop", default="320x448", help="HxW training crop")
     p.add_argument("--iter-size", type=int, default=1, help="micro-batches accumulated per iteration")
     p.add_argument("--max-iter", type=int, default=0, help="0: the schedule's")
@@ -82,7 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--write-augmented", default=None, metavar="DIR",
                    help="debug: write the augmented batch, its coefficients and the mean files to DIR every "
                    "display interval (AugmentationParameter.write_augmented)")
-    p.add_argument("--gpu", default="0", help="CUDA device index (one card)")
+    p.add_argument("--gpu", default="0", help="CUDA card index, 'all', or a comma list of indices: one process a card")
     p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
     # flags of the JAX CLI whose pieces are not ported yet: refused when set
     p.add_argument("--device-cache", type=int, default=0, help=argparse.SUPPRESS)
@@ -94,8 +107,6 @@ def _refuse_unsupported(args) -> None:
     for flag, value in (("--device-cache", args.device_cache), ("--steps-per-dispatch", args.steps_per_dispatch)):
         if value:
             raise SystemExit(f"{flag} is not ported to PyTorch yet")
-    if args.device is None and not args.gpu.isdigit():
-        raise SystemExit(f"--gpu {args.gpu}: the PyTorch port trains on one card; pass one index")
     if args.model == "dispnetc" and not args.no_augment:
         raise SystemExit("--model dispnetc trains on 1-channel disparity, which the augmentation cannot transform: "
                          "its ground-truth transform takes 2-channel flow, in the JAX package too; pass --no-augment")
@@ -129,38 +140,10 @@ def _open_dataset(args):
     return dataset
 
 
-def _device(args) -> str:
-    if args.device is not None:
-        return args.device
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device available; pass --device cpu to run on the CPU")
-    if int(args.gpu) >= torch.cuda.device_count():
-        raise SystemExit(f"device {args.gpu} not available ({torch.cuda.device_count()} present)")
-    return f"cuda:{args.gpu}"
-
-
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    _refuse_unsupported(args)
-
-    from flownet2_tpu_torch.checkpoint import init_params, load_into
-    from flownet2_tpu_torch.cli.run_flownet import load_weights
-    from flownet2_tpu_torch.data import BatchLoader
-    from flownet2_tpu_torch.data.augment_pipeline import (
-        BATCH_MEAN_KEYS,
-        MEAN_KEYS,
-        make_augmented_loss,
-        make_flownet_augmenter,
-        write_augmented,
-    )
-    from flownet2_tpu_torch.data.mean import MeanRecompute
+def _loss_key(args) -> str:
+    """The objective's key in ``LOSSES``, checked to train ``--model``."""
     from flownet2_tpu_torch.models import NETS, FlowNet2
-    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
-    from flownet2_tpu_torch.train.objectives import LOSS_MODEL, LOSSES, STAGE_LOSS_KEY, trainable_module
-
-    import torch
+    from flownet2_tpu_torch.train.objectives import LOSS_MODEL, LOSSES, STAGE_LOSS_KEY
 
     if args.model not in NETS:
         raise SystemExit(f"unknown model {args.model!r}; choose from {sorted(NETS)}")
@@ -173,8 +156,89 @@ def main(argv=None) -> int:
     ):
         raise SystemExit(f"objective {loss_key!r} does not train model {args.model!r}: the cascade-stage "
                          "objectives take --model flownet2, the others their own model")
+    return loss_key
+
+
+def _devices(args) -> list[str]:
+    """The devices to train on: ``--device``, or the cards of ``--gpu``."""
+    if args.device is not None:
+        return [args.device]
+    from flownet2_tpu_torch.parallel import pick_devices
+
+    try:
+        return [str(d) for d in pick_devices(args.gpu)]
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unsupported(args)
+    _loss_key(args)
+    devices = _devices(args)
+    if len(devices) == 1:
+        return train(args, devices[0])
+    return train_ranks(args, devices)
+
+
+def train_ranks(args, devices: list[str]) -> int:
+    """Train on ``devices``, one process each (``parallel.spawn``), and
+    return 0, or 1 when a rank failed. The kernels are built here first, so
+    that the ranks only load them. The ranks join over NCCL on cards and
+    over gloo on the CPU (tests run ``["cpu", "cpu"]``). SIGINT and SIGHUP
+    are left to the ranks, which agree on their action."""
+    import signal
+
+    import torch
+
+    from flownet2_tpu_torch.parallel import RankFailed, spawn
+
+    if torch.device(devices[0]).type == "cuda":
+        from flownet2_tpu_torch._build import build
+
+        build()
+    ignored = [s for s in (signal.SIGINT, getattr(signal, "SIGHUP", None)) if s is not None]
+    saved = [signal.signal(s, signal.SIG_IGN) for s in ignored]
+    try:
+        spawn(_train_rank, devices, args)
+    except RankFailed as e:
+        print(f"train: {e}", file=sys.stderr)
+        return 1
+    finally:
+        for s, handler in zip(ignored, saved):
+            signal.signal(s, handler)
+    return 0
+
+
+def _train_rank(group, args) -> int:
+    return train(args, group.device, group=group)
+
+
+def train(args, device, *, group=None) -> int:
+    """The training run on ``device``: alone, or as this process's rank of
+    a data-parallel ``group`` (``parallel.mesh.Group``)."""
+    from flownet2_tpu_torch.checkpoint import init_params, load_into
+    from flownet2_tpu_torch.cli.run_flownet import load_weights
+    from flownet2_tpu_torch.data import BatchLoader
+    from flownet2_tpu_torch.data.augment_pipeline import (
+        BATCH_MEAN_KEYS,
+        MEAN_KEYS,
+        make_augmented_loss,
+        make_flownet_augmenter,
+        write_augmented,
+    )
+    from flownet2_tpu_torch.data.mean import MeanRecompute
+    from flownet2_tpu_torch.models import NETS
+    from flownet2_tpu_torch.parallel import gather_to_main
+    from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, Solver, SolverConfig
+    from flownet2_tpu_torch.train.objectives import LOSSES, trainable_module
+
+    import torch
+
+    loss_key = _loss_key(args)
     crop_h, crop_w = (int(v) for v in args.crop.split("x"))
-    device = _device(args)
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    log = print if rank == 0 else (lambda *_: None)
     dataset = _open_dataset(args)
 
     sched = dict(FLOWNET_SCHEDULES[args.schedule])
@@ -194,7 +258,7 @@ def main(argv=None) -> int:
     loss_fn, means, transform = LOSSES[loss_key], [], None
     if augment:
         loss_fn = make_augmented_loss(loss_fn, crop_h, crop_w, seed=args.seed, mean_window=args.recompute_mean,
-                                      mean_per_pixel=args.mean_per_pixel)
+                                      mean_per_pixel=args.mean_per_pixel, rank=rank)
         transform = make_flownet_augmenter(crop_h, crop_w)
         if args.recompute_mean > 0:
             means = [MeanRecompute(crop_h, crop_w, 3, window=args.recompute_mean, per_pixel=args.mean_per_pixel)
@@ -204,7 +268,7 @@ def main(argv=None) -> int:
     load_into(net, init_params(args.model, seed=args.seed))
     solver = Solver(
         config, loss_fn, net, device=device, trainable=trainable_module(net, loss_key),
-        snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval, display=args.display,
+        snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval, display=args.display, group=group,
     )
     solver.install_signal_handlers()
     for i, m in enumerate(means):
@@ -214,9 +278,12 @@ def main(argv=None) -> int:
     if args.snapshot:
         solver.restore(args.snapshot)
 
-    # with augmentation the batches stay at source resolution: the card crops
-    loader = BatchLoader(dataset, args.batch * args.iter_size, crop=None if augment else (crop_h, crop_w),
-                         shuffle_seed=args.seed, transform=transform)
+    # with augmentation the batches stay at source resolution: the card
+    # crops. In a group the loader is keyed and this rank's rows of each
+    # global batch come out.
+    loader = BatchLoader(dataset, args.batch * args.iter_size * world, crop=None if augment else (crop_h, crop_w),
+                         shuffle_seed=args.seed, transform=transform,
+                         shard=(rank, world) if group is not None else None)
     last_batch = {}  # the batch of the latest step, for --write-augmented
 
     # The running mean attaches at step time, not in the prefetching
@@ -236,15 +303,24 @@ def main(argv=None) -> int:
         for m, key in zip(means, BATCH_MEAN_KEYS):
             m.update(aux[key].cpu().numpy())
         if last_batch and args.display and it % args.display == 0:
-            write_augmented(last_batch["batch"], args.write_augmented, it, crop_h, crop_w, device=device)
+            batch = last_batch["batch"]
+            if group is not None:  # the global batch, on rank 0
+                parts = gather_to_main(batch, group)
+                if parts is None:
+                    return
+                batch = {k: np.concatenate([part[k] for part in parts]) for k in batch}
+            write_augmented(batch, args.write_augmented, it, crop_h, crop_w, device=device)
             for i, m in enumerate(means):
                 m.write_mean(os.path.join(args.write_augmented, f"mean{i}.float3"))
 
-    print(f"Training {args.model} ({loss_key}) on {args.dataset} ({len(dataset)} samples) on {device}, "
-          f"{max_iter} iterations, crop {crop_h}x{crop_w}, batch {args.batch} x iter_size {args.iter_size}"
-          + (", augmented" if augment else ", center crops"))
+    batch_text = f"batch {args.batch}" if group is None else (
+        f"batch {args.batch * world} ({args.batch} x {world} devices)")
+    where = device if group is None else f"{world} processes ({group.backend}), rank 0 on {device}"
+    log(f"Training {args.model} ({loss_key}) on {args.dataset} ({len(dataset)} samples) on {where}, "
+        f"{max_iter} iterations, crop {crop_h}x{crop_w}, {batch_text} x iter_size {args.iter_size}"
+        + (", augmented" if augment else ", center crops"))
     solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook, on_step=on_step)
-    print(f"Optimization done, final smoothed loss {solver.smoothed_loss:.4f}")
+    log(f"Optimization done, final smoothed loss {solver.smoothed_loss:.4f}")
     return 0
 
 

@@ -24,7 +24,7 @@ contrast / color, gaussian noise up to 0.06.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -135,12 +135,21 @@ def make_flownet_augmenter(
     aug_inv_mat1 (N, 6) frame 1's source -> crop affine,
     aug_gamma / aug_brightness / aug_contrast (N,), aug_color (N, 3),
     aug_noise (N,). The images and the flow stay at source resolution; the
-    device makes the crops."""
+    device makes the crops.
 
-    def transform(batch: dict, rng: np.random.Generator) -> dict:
+    ``rows=(lo, hi, n)`` (a keyed ``BatchLoader``'s shard): the batch holds
+    rows [lo, hi) of a global batch of n items; the coefficients of all n
+    are drawn and those rows kept, so every rank's rows carry the
+    coefficients one process would draw for the global batch."""
+
+    def transform(batch: dict, rng: np.random.Generator, rows: Optional[tuple[int, int, int]] = None) -> dict:
         n, src_h, src_w = batch["img0"].shape[:3]
+        lo, hi, total = rows if rows is not None else (0, n, n)
+        if hi - lo != n:
+            raise ValueError(f"rows {rows} do not match a batch of {n}")
+        arrays = sample_aug_arrays(config, rng, total, src_h, src_w, crop_h, crop_w)
         batch = dict(batch)
-        batch.update(sample_aug_arrays(config, rng, n, src_h, src_w, crop_h, crop_w))
+        batch.update({k: v[lo:hi] for k, v in arrays.items()})
         return batch
 
     return transform
@@ -239,6 +248,15 @@ def write_augmented(
     return paths
 
 
+def noise_seed(seed: int, rank: int) -> int:
+    """The noise generator's seed on ``rank``: ``seed`` itself on rank 0, as
+    in one process; on the other ranks one drawn from (seed, rank), so that
+    no two ranks add the same noise field to their different pairs."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
+
+
 def make_augmented_loss(
     base_loss: Callable,
     crop_h: int,
@@ -247,6 +265,7 @@ def make_augmented_loss(
     *,
     mean_window: int = 0,
     mean_per_pixel: bool = False,
+    rank: int = 0,
 ) -> Callable:
     """Wrap an objective ``base_loss(net, batch)`` so that it augments the
     batch first, when the batch carries the aug_* arrays (else it passes
@@ -260,10 +279,13 @@ def make_augmented_loss(
     back in the aux dict as ``aug_batch_mean0/1`` for the host mirrors.
 
     The noise comes from one generator on the batch's device, seeded with
-    ``seed`` at the first call and advancing from call to call, so drawing
-    it never waits for the device. A resumed run draws the stream afresh,
-    as its loader starts its epochs afresh."""
+    ``noise_seed(seed, rank)`` at the first call and advancing from call to
+    call, so drawing it never waits for the device: each rank of a
+    data-parallel group draws its own noise fields, and rank 0 those of one
+    process. A resumed run draws the stream afresh, as its loader starts
+    its epochs afresh."""
     generator = None
+    seed = noise_seed(seed, rank)
 
     def loss_fn(net, batch):
         nonlocal generator

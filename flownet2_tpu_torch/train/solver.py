@@ -18,7 +18,14 @@ reference src/caffe/solver.cpp).
 - ``snapshot``/``restore``: the weights as the JAX package's flat ``.npz``
   (``iter_NNNNNNN.npz``, readable by ``flownet2_tpu.checkpoint.load_params``)
   and, beside it, ``iter_NNNNNNN.pt`` with the optimizer state, the
-  iteration and any registered host-side state.
+  iteration and any registered host-side state;
+- ``group``: data-parallel training, one process per device
+  (``parallel``; the JAX package's ``Solver(mesh=...)``): each rank steps
+  on its rows of the global batch, the gradients cross the ranks in one
+  flat ``all_reduce`` after the last backward and before the update, and
+  the loss, aux values and signal requests in one more. Rank 0 logs and
+  writes the snapshots; the parameters are broadcast from rank 0 at start,
+  after ``copy_weights_from`` and after ``restore``.
 """
 
 from __future__ import annotations
@@ -40,9 +47,15 @@ from flownet2_tpu_torch.checkpoint import (
     save_params,
     state_dict_from_params,
 )
+from flownet2_tpu_torch.parallel.data_parallel import allreduce_gradients, allreduce_stats, broadcast_module
+from flownet2_tpu_torch.parallel.mesh import Group
 from flownet2_tpu_torch.train.solvers import CaffeSolver, SolverConfig, make_solver
 
 AVERAGE_LOSS = 100  # iterations the displayed loss is averaged over
+# the signal actions a rank can request, in the order of the request vector
+ACTIONS = ("stop", "snapshot")
+# aux key of the request vector agreed across the ranks in a group step
+REQUEST_KEY = "signal_request"
 
 
 def make_train_step(
@@ -50,14 +63,23 @@ def make_train_step(
     optimizer: CaffeSolver,
     *,
     iter_size: int = 1,
-) -> Callable[[nn.Module, dict], tuple[torch.Tensor, dict]]:
+    group: Optional[Group] = None,
+) -> Callable[..., tuple[torch.Tensor, dict]]:
     """``step(net, batch) -> (loss, aux)``, both detached and on the device.
 
     With ``iter_size`` > 1 every tensor of ``batch`` has a leading
-    micro-batch axis of that size."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    micro-batch axis of that size.
 
-    def step(net, batch):
+    With a ``group``, ``batch`` holds this rank's rows and the step is
+    ``step(net, batch, request) -> (loss, aux)``: after the last backward
+    the gradients are averaged across the ranks by one flat ``all_reduce``
+    (whatever path ``loss_fn`` takes to the parameters), then the loss, the
+    aux values and ``request`` (this rank's signal requests, one float per
+    :data:`ACTIONS` entry) by one more; the loss and aux come back as the
+    global means, and the agreed requests as ``aux[REQUEST_KEY]``."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def step(net, batch, request=None):
         optimizer.zero_grad(set_to_none=True)
         if iter_size == 1:
             loss, aux = loss_fn(net, batch)
@@ -73,7 +95,11 @@ def make_train_step(
                 if p.grad is not None:
                     p.grad.div_(iter_size)
             loss = torch.stack(losses).mean()
-            aux = {k: torch.stack([a[k].detach() for a in auxes]).mean() for k in auxes[0]}
+            aux = {k: torch.stack([a[k].detach() for a in auxes]).mean(dim=0) for k in auxes[0]}
+        if group is not None:
+            allreduce_gradients(params, group)
+            loss, aux, agreed = allreduce_stats(loss, aux, request, group)
+            aux[REQUEST_KEY] = agreed
         optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
@@ -95,7 +121,16 @@ class Solver:
     ``test_fn(net) -> float``: every ``test_interval`` iterations
     :meth:`solve` logs ``Iteration N, test metric = x`` (e.g. a held-out
     EPE, as ``cli/test.py`` scores it) through :meth:`test`, which a loop
-    of its own over :meth:`step` calls too (``tools/overfit.py``)."""
+    of its own over :meth:`step` calls too (``tools/overfit.py``).
+
+    ``group``: this process's rank of a data-parallel group
+    (``parallel.mesh.Group``); ``device`` defaults to its device, and
+    :meth:`step` takes this rank's rows of each global batch
+    (``parallel.rank_rows``). A signal seen by any rank acts on every rank
+    at the same iteration: the requests ride the step's stats collective,
+    and each step acts on the requests agreed one step before, so that
+    reading them waits for that step alone and the host stays a step
+    ahead of the device."""
 
     def __init__(
         self,
@@ -103,7 +138,7 @@ class Solver:
         loss_fn: Callable,
         net: nn.Module,
         *,
-        device,
+        device=None,
         trainable: Optional[nn.Module] = None,
         snapshot_dir: Optional[str] = None,
         snapshot_interval: int = 0,
@@ -111,10 +146,18 @@ class Solver:
         loss_schedule: Optional[Any] = None,
         test_fn: Optional[Callable[[nn.Module], float]] = None,
         test_interval: int = 0,
+        group: Optional[Group] = None,
     ):
+        if device is None and group is None:
+            raise ValueError("Solver needs a device or a group")
         self.config = config
-        self.device = torch.device(device)
+        self.group = group
+        self.device = torch.device(device) if device is not None else group.device
+        if group is not None and self.device != group.device:
+            raise ValueError(f"device {self.device} is not the group's {group.device}")
         self.net = net.to(self.device)
+        if group is not None:
+            broadcast_module(self.net, group)
         params = list((net if trainable is None else trainable).parameters())
         train_ids = {id(p) for p in params}
         for p in net.parameters():
@@ -132,6 +175,8 @@ class Solver:
         self.test_interval = test_interval
         self._loss_window: deque = deque(maxlen=AVERAGE_LOSS)
         self._requested_action = None
+        self._agreed = None  # in a group: the requests agreed at the previous step, on their way to the host
+        self._agreed_before: Optional[list] = None
         # one host sync per sync_bound steps bounds how far the host runs ahead
         self.sync_bound = 64
         self._steps_since_sync = 0
@@ -142,7 +187,7 @@ class Solver:
 
     def _build_step(self, episode):
         loss_fn = self._loss_fn if episode is None else functools.partial(self._loss_fn, episode=episode)
-        return make_train_step(loss_fn, self.optimizer, iter_size=self.config.iter_size)
+        return make_train_step(loss_fn, self.optimizer, iter_size=self.config.iter_size, group=self.group)
 
     def register_extra(self, name: str, obj: Any) -> None:
         """Register host-side state to persist alongside snapshots."""
@@ -178,7 +223,16 @@ class Solver:
                 self._episode = episode
                 self.step_fn = self._build_step(episode)
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
-        loss, aux = self.step_fn(self.net, batch)
+        if self.group is None:
+            loss, aux = self.step_fn(self.net, batch)
+        else:
+            request = torch.zeros(len(ACTIONS), device=self.device)
+            if self._requested_action is not None:
+                request[ACTIONS.index(self._requested_action)] = 1.0
+                self._requested_action = None
+            loss, aux = self.step_fn(self.net, batch, request)
+            agreed, self._agreed = self._agreed, _HostCopy(aux.pop(REQUEST_KEY))
+            self._agreed_before = agreed.read() if agreed is not None else None
         self.iteration += 1
         self._loss_window.append(loss)
         self._steps_since_sync += 1
@@ -186,6 +240,24 @@ class Solver:
             self._steps_since_sync = 0
             float(loss)
         return loss, aux
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process logs and writes snapshots: rank 0, or the
+        only process."""
+        return self.group is None or self.group.is_main
+
+    def _take_action(self) -> Optional[str]:
+        """The signal action to carry out after this step: this process's
+        request, or in a group the first of :data:`ACTIONS` that a rank
+        requested, as agreed at the previous step."""
+        if self.group is None:
+            action = self._requested_action
+            if action == "snapshot":
+                self._requested_action = None
+            return action
+        agreed, self._agreed_before = self._agreed_before, None
+        return next((a for a, v in zip(ACTIONS, agreed or ()) if v > 0), None)
 
     def test(self, log: Callable[[str], None] = print) -> float:
         """Score the net with ``test_fn`` and log ``Iteration N, test
@@ -208,8 +280,11 @@ class Solver:
         on each batch just before its step (at step time, unlike a loader
         transform, which runs batches ahead); ``on_step(iteration, loss,
         aux)`` runs after each step, for host state that mirrors the step
-        (a ``data.mean.MeanRecompute``)."""
+        (a ``data.mean.MeanRecompute``). In a group only rank 0 logs and
+        writes snapshots."""
         max_iter = self.config.max_iter if max_iter is None else max_iter
+        if not self.is_main:
+            log = _silent
         t0 = time.time()
         while self.iteration < max_iter:
             batch = next(data_iter)
@@ -224,24 +299,28 @@ class Solver:
                 t0 = time.time()
                 log(f"Iteration {it}, loss = {self.smoothed_loss:.6f} ({rate:.2f} iter/s)")
                 self.history.append((it, self.smoothed_loss))
-            if self.test_fn and self.test_interval and it % self.test_interval == 0:
+            if self.test_fn and self.test_interval and it % self.test_interval == 0 and self.is_main:
                 self.test(log)
             if self.snapshot_interval and self.snapshot_dir and it % self.snapshot_interval == 0:
                 self.snapshot()
-            if self._requested_action == "stop":
+            action = self._take_action()
+            if action == "stop":
                 log(f"Stopping early at iteration {it} (signal).")
                 break
-            if self._requested_action == "snapshot":
+            if action == "snapshot":
                 self.snapshot()
-                self._requested_action = None
         if self.snapshot_dir:
             self.snapshot()
 
     # -- checkpointing (reference Snapshot/Restore, solver.cpp:412-483)
     def snapshot(self) -> str:
-        """Write ``iter_NNNNNNN.npz`` and ``.pt``; return their common prefix."""
-        os.makedirs(self.snapshot_dir, exist_ok=True)
+        """Write ``iter_NNNNNNN.npz`` and ``.pt``; return their common prefix.
+        In a group rank 0 writes them, and the other ranks only return the
+        prefix: every rank holds the same state."""
         prefix = os.path.abspath(os.path.join(self.snapshot_dir, f"iter_{self.iteration:07d}"))
+        if not self.is_main:
+            return prefix
+        os.makedirs(self.snapshot_dir, exist_ok=True)
         save_params(prefix + ".npz", params_from_state_dict(self.net.state_dict()))
         extras = {
             name: {k: torch.as_tensor(np.asarray(v)) for k, v in obj.state_dict().items()}
@@ -254,7 +333,9 @@ class Solver:
         return prefix
 
     def restore(self, path: str) -> None:
-        """Resume from a snapshot, named by its prefix or either file."""
+        """Resume from a snapshot, named by its prefix or either file. In a
+        group every rank reads it, and the parameters are then broadcast
+        from rank 0."""
         prefix = path[: -len(os.path.splitext(path)[1])] if path.endswith((".npz", ".pt")) else path
         self.net.load_state_dict(state_dict_from_params(load_params(prefix + ".npz")), strict=True)
         state = torch.load(prefix + ".pt", map_location=self.device, weights_only=True)
@@ -263,6 +344,8 @@ class Solver:
         for name, obj in self._extras.items():
             if state["extras"].get(name):
                 obj.load_state_dict({k: v.cpu().numpy() for k, v in state["extras"][name].items()})
+        if self.group is not None:
+            broadcast_module(self.net, self.group)
 
     def copy_weights_from(self, params: dict, strict: bool = False) -> None:
         """Finetuning as ``caffe train -weights``: copy the JAX-layout
@@ -276,3 +359,29 @@ class Solver:
                 elif strict:
                     got = tuple(src[key].shape) if key in src else "missing"
                     raise ValueError(f"parameter {key}: {got} vs {tuple(dst.shape)}")
+        if self.group is not None:
+            broadcast_module(self.net, self.group)
+
+
+def _silent(_: str) -> None:
+    """The log of the ranks other than 0."""
+
+
+class _HostCopy:
+    """A small device tensor on its way to the host: the copy is queued
+    behind the work that makes the tensor, and :meth:`read` waits for that
+    work alone, not for what was queued after it."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = t, None
+
+    def read(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.tolist()

@@ -5,9 +5,11 @@ the nets better?
 - ``r5``: the recipe of runs/synth/run_r5.sh with the port's CLIs:
   tools.synth_dataset writes 2048 training and 64 held-out samples at
   384x512 (seed 11); cli.train trains FlowNetS on them (320x448 crops,
-  augmented, batch 8, S_short, Adam at 2e-4, seed 3, snapshots every 1504
-  iterations); cli.test scores the held-out split at initialisation
-  (``random``) and at every snapshot. The JAX run also used a device cache
+  augmented, batch 8, S_short, Adam at 2e-4, snapshots every 1504
+  iterations) once for each of ``--train-seeds`` (default 3, the JAX run's
+  seed: it seeds the weights, the sample order and the augmentation);
+  cli.test scores the held-out split at initialisation (``random``, seed 0)
+  and at every snapshot. The JAX run also used a device cache
   and 32 steps a dispatch, which the port does not have; the data and the
   optimization are the same;
 - ``overfit``: tools.overfit for ``--overfit-iters`` iterations (cosine
@@ -23,7 +25,7 @@ cascade runs use the card. Each tool's own output goes to
 each, to standard output, with the card's name and power limit.
 
     python3 scripts/convergence_runs.py [--out build/convergence] [--runs r5,overfit,cascade]
-        [--r5-iters 3008] [--overfit-iters 2000] [--cascade-iters 800]
+        [--r5-iters 3008] [--train-seeds 3[,5,...]] [--overfit-iters 2000] [--cascade-iters 800]
 """
 
 from __future__ import annotations
@@ -81,6 +83,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="build/convergence")
     p.add_argument("--runs", default="r5,overfit,cascade")
     p.add_argument("--r5-iters", type=int, default=3008)
+    p.add_argument("--train-seeds", default="3", help="comma list: one r5 training run per seed")
     p.add_argument("--overfit-iters", type=int, default=2000)
     p.add_argument("--cascade-iters", type=int, default=800)
     args = p.parse_args(argv)
@@ -146,27 +149,36 @@ def main(argv=None) -> int:
             if gen.returncode != 0:
                 raise RuntimeError(f"synth_dataset: exit {gen.returncode}\n{gen_out[-2000:]}")
             print(f"[convergence] synth_dataset 2048 + 64 samples: {time.perf_counter() - t_gen:.1f} s", flush=True)
-            snaps = os.path.join(data, "snaps")
-            rc, text, secs = run([sys.executable, "-u", "-m", "flownet2_tpu_torch.cli.train", "--model", "flownets",
-                                  "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec", "--crop", "320x448",
-                                  "--batch", "8", "--max-iter", str(args.r5_iters), "--schedule", "S_short",
-                                  "--solver", "adam", "--base-lr", "2e-4", "--display", "96", "--snapshot-dir", snaps,
-                                  "--snapshot-interval", "1504", "--seed", "3", "--gpu", "0"],
-                                 os.path.join(out, "r5_train.log"), 3600)
-            if rc != 0:
-                raise RuntimeError(f"cli.train: exit {rc}")
-            curve = [dict(iteration=0, weights="random-init",
-                          epe=heldout_epe("random", prefix + "_eval.flowrec", os.path.join(out, "r5_eval_init.log")))]
-            for name in sorted(n for n in os.listdir(snaps) if n.endswith(".npz")):
-                it = int(name.split("_")[1].split(".")[0])
-                curve.append(dict(iteration=it, weights=name, epe=heldout_epe(
-                    os.path.join(snaps, name), prefix + "_eval.flowrec", os.path.join(out, f"r5_eval_{it:07d}.log"))))
-            results["r5"] = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448",
-                                 train_seconds=secs, curve=curve,
-                                 jax_curve={"0": 24.6989, "1504": 12.0651, "3008": 8.5095})
-            print(f"[convergence] r5 recipe, held-out mean EPE: "
-                  f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)} (JAX TPU run 24.70 / 12.07 / "
-                  f"8.51); cli.train {secs:.1f} s ({card})", flush=True)
+            init = heldout_epe("random", prefix + "_eval.flowrec", os.path.join(out, "r5_eval_init.log"))
+            runs_out = []
+            for seed in (int(v) for v in args.train_seeds.split(",")):
+                snaps = os.path.join(data, f"snaps_seed{seed}")
+                rc, text, secs = run([sys.executable, "-u", "-m", "flownet2_tpu_torch.cli.train", "--model",
+                                      "flownets", "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec",
+                                      "--crop", "320x448", "--batch", "8", "--max-iter", str(args.r5_iters),
+                                      "--schedule", "S_short", "--solver", "adam", "--base-lr", "2e-4", "--display",
+                                      "96", "--snapshot-dir", snaps, "--snapshot-interval", "1504", "--seed",
+                                      str(seed), "--gpu", "0"],
+                                     os.path.join(out, f"r5_train_seed{seed}.log"), 3600)
+                if rc != 0:
+                    raise RuntimeError(f"cli.train seed {seed}: exit {rc}")
+                curve = [dict(iteration=0, weights="random-init", epe=init)]
+                for name in sorted(n for n in os.listdir(snaps) if n.endswith(".npz")):
+                    it = int(name.split("_")[1].split(".")[0])
+                    curve.append(dict(iteration=it, weights=name, epe=heldout_epe(
+                        os.path.join(snaps, name), prefix + "_eval.flowrec",
+                        os.path.join(out, f"r5_eval_seed{seed}_{it:07d}.log"))))
+                runs_out.append(dict(seed=seed, train_seconds=secs, curve=curve))
+                print(f"[convergence] r5 recipe, training seed {seed}, held-out mean EPE: "
+                      f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)} (JAX TPU run, seed 3: "
+                      f"24.70 / 12.07 / 8.51); cli.train {secs:.1f} s ({card})", flush=True)
+                results["r5"] = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448",
+                                     runs=runs_out, jax_curve={"0": 24.6989, "1504": 12.0651, "3008": 8.5095})
+                save()
+            finals = [r["curve"][-1]["epe"] for r in runs_out]
+            print(f"[convergence] r5 recipe, held-out mean EPE at {args.r5_iters} over seeds "
+                  f"{args.train_seeds}: {', '.join(f'{v:.4f}' for v in finals)} (min {min(finals):.4f}, max "
+                  f"{max(finals):.4f}; JAX TPU run 8.5095) ({card})", flush=True)
             save()
     finally:
         if gen is not None and gen.poll() is None:

@@ -14,7 +14,7 @@ import torch
 
 from flownet2_tpu_torch.checkpoint import init_params, load_into
 from flownet2_tpu_torch.inference import FlowRunner
-from flownet2_tpu_torch.models import DispNetC, FlowNet2
+from flownet2_tpu_torch.models import DispNetC, FlowNet2, FlowNetC
 from flownet2_tpu_torch.ops.correlation import (
     correlation,
     correlation_1d,
@@ -1214,3 +1214,103 @@ def test_time_cmd_breakdown_on_card_has_the_cpu_walks_stages(cuda):
     assert [(r[0], int(r[2])) for r in rows] == [(name, count) for name, count, _ in cpu]
     assert all(np.isfinite(float(r[3])) and float(r[3]) > 0 for r in rows)
     assert lines[-1].startswith("sum (count-weighted)")
+
+
+# -- data-parallel training on the card's one H100 ---------------------------------------------------
+
+DP_ADAM = dict(solver_type="adam", base_lr=1e-4, lr_policy="fixed", momentum=0.9, momentum2=0.999)
+
+
+def _dp_run(device, group=None, rows=None, steps=2, iter_size=1):
+    """FlowNetC Adam steps on smooth 320x448 batches of 4 (this rank's rows
+    of them in a group; ``iter_size`` micro-batches of consecutive rows):
+    the losses, the launches of the warp, correlation and correlation
+    backward kernels, the first step's gradients and the parameters after
+    (numpy: they cross process boundaries)."""
+    from flownet2_tpu_torch.parallel import rank_rows
+    from flownet2_tpu_torch.train import Solver, SolverConfig
+
+    with torch.device("meta"):
+        net = FlowNetC()
+    solver = Solver(SolverConfig(**DP_ADAM, iter_size=iter_size), objectives.flownet_c_loss,
+                    load_into(net, init_params("flownetc", seed=4)), device=device, group=group)
+    kernels = (flow_warp_cuda, correlation_cuda, correlation_backward_cuda)
+    before = [k.launches for k in kernels]
+    losses = []
+    for i in range(steps):
+        batch = _smooth_batch(n=4, h=320, w=448, seed=30 + i)
+        batch = batch if rows is None else rank_rows(batch, *rows)
+        if iter_size > 1:
+            batch = {k: v.reshape(iter_size, -1, *v.shape[1:]) for k, v in batch.items()}
+        losses.append(solver.step(batch)[0].item())
+        if i == 0:
+            grads = {k: p.grad.cpu().numpy().copy() for k, p in solver.net.named_parameters()}
+    torch.cuda.synchronize()
+    params = {k: p.detach().cpu().numpy() for k, p in solver.net.named_parameters()}
+    return losses, tuple(k.launches - b for k, b in zip(kernels, before)), grads, params
+
+
+def _dp_gloo_rank(group):
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    losses, launches, grads, params = _dp_run(group.device, group, rows=(group.rank, group.world))
+    return losses, launches, (grads, params) if group.is_main else None
+
+
+def test_dp_world_one_over_nccl_equals_the_plain_step(cuda, no_tf32):
+    """A Solver in a world-1 NCCL group takes the plain Solver's steps:
+    parameters equal to within the spread of two plain runs (0 with
+    cuDNN's deterministic algorithms), the same kernel launches."""
+    import torch.distributed as dist
+
+    from flownet2_tpu_torch.parallel import init_group
+    from flownet2_tpu_torch.parallel.mesh import free_address
+
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = [_dp_run(cuda) for _ in range(2)]
+        group = init_group(0, 1, torch.device("cuda", 0), free_address(), backend="nccl")
+        try:
+            grouped = _dp_run(group.device, group)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    spread = max(float(np.abs(plain[0][3][k] - plain[1][3][k]).max()) for k in plain[0][3])
+    diff = max(float(np.abs(grouped[3][k] - plain[0][3][k]).max()) for k in plain[0][3])
+    assert diff <= spread, (diff, spread)
+    assert grouped[1] == plain[0][1] == (0, 2, 2)
+    assert grouped[0] == plain[0][0]
+
+
+def test_dp_two_gloo_ranks_on_one_card_match_one_process(cuda, no_tf32):
+    """2 processes over gloo sharing cuda:0, 2 pairs each, against one
+    process, cuDNN's deterministic algorithms throughout: loss rtol 1e-4 and the first step's gradients (relative L2 of
+    all tensors and of the median tensor <= 1e-3) against the process at
+    b4; the updates (the same limits) against the process at iter_size 2
+    on the ranks' halves, since Adam turns b4's rounding against 2 x b2
+    into a larger share of an update; each rank's launches the one
+    process's."""
+    from flownet2_tpu_torch.parallel import spawn
+
+    ranks = spawn(_dp_gloo_rank, [torch.device("cuda", 0)] * 2, backend="gloo", join_timeout=300)
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses, launches, grads, params = _dp_run(cuda)
+        *_, halves = _dp_run(cuda, iter_size=2)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    with torch.device("meta"):
+        net = FlowNetC()
+    start = {k: p.detach().numpy() for k, p in load_into(net, init_params("flownetc", seed=4)).named_parameters()}
+    np.testing.assert_allclose(ranks[0][0], losses, rtol=1e-4)
+    assert ranks[0][1] == ranks[1][1] == launches
+    got_grads, got_params = ranks[0][2]
+    whole, median = _grad_errors({k: torch.from_numpy(v) for k, v in got_grads.items()},
+                                 {k: torch.from_numpy(v) for k, v in grads.items()})
+    assert whole <= 1e-3 and median <= 1e-3, ("gradients", whole, median)
+    whole, median = _grad_errors({k: torch.from_numpy(got_params[k] - start[k]) for k in start},
+                                 {k: torch.from_numpy(halves[k] - start[k]) for k in start})
+    assert whole <= 1e-3 and median <= 1e-3, ("updates", whole, median)

@@ -508,22 +508,26 @@ def test_train_cli_recompute_mean_and_write_augmented(tmp_path, capsys):
         assert int(extras[f"mean{i}"]["num_iter"]) == 2
 
 
-@pytest.mark.parametrize("extra,message", [
+@pytest.mark.parametrize("extra,cards,message", [
     # the augmentation's ground-truth transform takes 2-channel flow, in the JAX package too
-    (["--model", "dispnetc"], "1-channel disparity, which the augmentation cannot transform"),
-    (["--no-augment", "--gpu", "all"], "one card"),
-    (["--no-augment", "--gpu", "0,1"], "one card"),
-    (["--no-augment", "--device-cache", "64"], "--device-cache"),
-    (["--device-cache", "64"], "--device-cache"),  # with augmentation
-    (["--gpu", "all"], "one card"),  # with augmentation
-    (["--no-augment", "--steps-per-dispatch", "4"], "--steps-per-dispatch"),
-    (["--recompute-mean", "2", "--iter-size", "2"], "--iter-size"),
-    (["--no-augment", "--device", "cpu", "--loss", "flownet2-s1"], "does not train"),
+    (["--model", "dispnetc"], None, "1-channel disparity, which the augmentation cannot transform"),
+    # --gpu: no card at all, a card past those present, a duplicate; never the CPU
+    (["--no-augment", "--gpu", "all"], 0, "no CUDA device"),
+    (["--no-augment", "--gpu", "0,1"], 1, r"card 1 not available \(1 present\)"),
+    (["--no-augment", "--device-cache", "64"], None, "--device-cache"),
+    (["--device-cache", "64"], None, "--device-cache"),  # with augmentation
+    (["--gpu", "0,0"], 2, "duplicate"),  # with augmentation
+    (["--no-augment", "--steps-per-dispatch", "4"], None, "--steps-per-dispatch"),
+    (["--recompute-mean", "2", "--iter-size", "2"], None, "--iter-size"),
+    (["--no-augment", "--device", "cpu", "--loss", "flownet2-s1"], None, "does not train"),
     # DispNetC trains from packed disparity records, not from a flow layout
-    (["--no-augment", "--device", "cpu", "--model", "dispnetc"], "disparity"),
+    (["--no-augment", "--device", "cpu", "--model", "dispnetc"], None, "disparity"),
 ])
-def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, message):
-    """Refusals of what the port does not do, or the JAX package cannot do."""
+def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, cards, message):
+    """Refusals of what the port does not do, or the JAX package cannot do.
+    ``cards``: the number of cards the CLI is told are present."""
+    if cards is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     with pytest.raises(SystemExit, match=message):
         train_main(["--model", "flownetc", "--data-root", str(tmp_path), *extra])
 
@@ -546,6 +550,7 @@ import flownet2_tpu_torch.train, flownet2_tpu_torch.train.objectives, flownet2_t
 import flownet2_tpu_torch.cli.train, flownet2_tpu_torch.ops.losses
 import flownet2_tpu_torch.data.augment_pipeline, flownet2_tpu_torch.data.aug_params, flownet2_tpu_torch.data.mean
 import flownet2_tpu_torch.ops.augment, flownet2_tpu_torch.ops.mean, flownet2_tpu_torch.tools.writers
+import flownet2_tpu_torch.parallel, flownet2_tpu_torch.tools.diag.bf16_parity
 assert not [m for m in sys.modules if blocked(m)]
 print("imported without jax")
 """
