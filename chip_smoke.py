@@ -72,6 +72,14 @@ card against CPU), then drives the port's paths with seeded random weights:
   on the 8 (noise 0; FlowNetC and the flownet2-s1 stage loss), the flat
   gradient all-reduce's time, and ``cli.train --gpu all`` on the one card
   with ``--gpu 0,1`` refused;
+- the device sample cache and K-step training, on FlowNetS at 448x320 b8
+  augmented from 512x384 transport samples of a synthetic .flowrec:
+  ``Solver.solve_cached`` at K = 4 against the same batches through
+  ``Solver.step`` (parameters equal; 2 K1 launches a step), the refresh
+  hazard (id-filled samples swapped unthrottled while the card lags the
+  host by chunks, under sync debug mode "error": no torn or stale sample),
+  and ms a step resident, fed from ``BatchLoader``, and from the cache at
+  K = 1 and K = 32, with the profiler's idle shares;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -2498,6 +2506,362 @@ def phase_dp(dev: torch.device, card: str) -> dict:
     return results
 
 
+CACHE_SLAB, CACHE_SLABS, CACHE_FILE_SAMPLES = 16, 4, 16
+CACHE_TIMED_STEPS = 32
+# spin cycles the card sleeps before each chunk of the refresh-hazard run
+# (about 0.4 s at the H100's clock, more than the host takes to queue a
+# chunk), so that the card falls chunks behind the host, and slabs are
+# swapped and dropped before the card reads them
+HAZARD_SLEEP_CYCLES = 700_000_000
+
+
+def busy_ms(prof) -> float:
+    """Length of the union of the device's kernel, copy and memset intervals
+    in a profile, in ms (user annotations left out, as
+    ``scripts/profile_slice.py::busy_us`` does)."""
+    from torch.autograd import DeviceType
+
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    total, start, end = 0.0, None, None
+    for s, e in ivs:
+        if end is None or s > end:
+            if end is not None:
+                total += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
+def step_times(fn, calls: int, warmup: int) -> list[float]:
+    """ms of each of ``calls`` back-to-back calls of ``fn`` by CUDA events
+    recorded between them (nothing waits in between), after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def idle_share(fn, calls: int) -> float:
+    """1 - device busy / wall over ``calls`` calls of ``fn`` under
+    ``torch.profiler`` (the device's activity only; wall by the host clock,
+    from a drained queue to a drained queue)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return 1 - busy_ms(prof) / wall
+
+
+def id_samples(start: int = 0):
+    """An endless stream of 512x384 transport samples, each filled with its
+    own id: images id % 251, flow id % 32000 in both channels, and ``sid``."""
+    sh, sw = CHAIRS_FRAME
+    i = start
+    while True:
+        img = np.full((sh, sw, 3), i % 251, np.uint8)
+        yield {"img0": img, "img1": img, "flow": np.full((sh, sw, 2), i % 32000, np.int16), "sid": np.int32(i)}
+        i += 1
+
+
+class CacheRig:
+    """What the [cache] parts share: the r5 recipe's FlowNetS step (Adam at
+    2e-4, S_short, augmented 448x320 b8 crops of 512x384 samples), its
+    seeded starting net, and a synthetic transport .flowrec."""
+
+    def __init__(self, dev: torch.device, tmp: str):
+        from flownet2_tpu_torch.data import FlowRecordReader, FlowRecordWriter
+        from flownet2_tpu_torch.data.augment_pipeline import make_augmented_loss
+        from flownet2_tpu_torch.train import FLOWNET_SCHEDULES, SolverConfig
+        from flownet2_tpu_torch.train.objectives import flownet_s_loss
+
+        sched = FLOWNET_SCHEDULES["S_short"]
+        self.dev = dev
+        self.config = SolverConfig(solver_type="adam", lr_policy=sched["policy"], base_lr=2e-4, gamma=sched["gamma"],
+                                   stepvalues=sched["stepvalues"], max_iter=sched["max_iter"], momentum=0.9,
+                                   momentum2=0.999)
+        self.aug_loss = make_augmented_loss(flownet_s_loss, H, W, seed=SEED)
+        self.start_net = _net("flownets")
+        sh, sw = CHAIRS_FRAME
+        rec = os.path.join(tmp, "chairs.flowrec")
+        rng = np.random.default_rng(SEED + 7)
+        ys, xs = np.mgrid[0:sh, 0:sw].astype(np.float32)
+        with FlowRecordWriter(rec) as w:
+            for _ in range(CACHE_FILE_SAMPLES):  # frame 1: frame 0 moved by a whole-pixel shift, the flow
+                frame = random_texture(rng)(xs, ys).astype(np.uint8)
+                dx, dy = (int(v) for v in rng.integers(-6, 7, 2))
+                w.write(frame, np.roll(frame, (dy, dx), axis=(0, 1)),
+                        np.broadcast_to(np.float32([dx, dy]), (sh, sw, 2)).copy())
+        self.dataset = FlowRecordReader(rec, transport=True)
+
+    def aug_sampler(self, rng, n, quiet=False):
+        """The CLI's sampler; ``quiet``: noise 0."""
+        from flownet2_tpu_torch.data.augment_pipeline import FlowNetAugConfig, sample_aug_arrays
+
+        arrays = sample_aug_arrays(FlowNetAugConfig(), rng, n, *CHAIRS_FRAME, H, W)
+        if quiet:
+            arrays["aug_noise"] = np.zeros_like(arrays["aug_noise"])
+        return arrays
+
+    def solver(self, loss_fn):
+        from flownet2_tpu_torch.train import Solver
+
+        return Solver(self.config, loss_fn, copy.deepcopy(self.start_net), device=self.dev, display=0)
+
+
+def cache_equality(rig: CacheRig, kernels: dict) -> dict:
+    """4 steps through ``solve_cached`` at K = 4 from a cache of 2 x 16
+    samples (no refresh, noise 0) against the same 4 batches gathered on the
+    host through ``Solver.step``, cuDNN deterministic: parameters max abs 0,
+    or within the spread of two plain runs (both printed); K1's launches in
+    the cached steps, counted from 0 (2 a step)."""
+    from flownet2_tpu_torch.data.augment_pipeline import make_augmented_loss
+    from flownet2_tpu_torch.data.device_cache import CacheChunks, DeviceSampleCache, cycle_dataset, make_cache_gather_loss
+    from flownet2_tpu_torch.ops.warp import flow_warp_backward_cuda, flow_warp_cuda
+    from flownet2_tpu_torch.train.objectives import flownet_s_loss
+
+    dev = rig.dev
+    torch.backends.cudnn.deterministic = True
+    try:
+        cache = DeviceSampleCache(cycle_dataset(rig.dataset, seed=SEED), slab_samples=CACHE_SLAB, n_slabs=2,
+                                  refresh=False, device=dev)
+        slabs, bank = next(iter(CacheChunks(cache, N, 4, seed=SEED,
+                                            aug_sampler=lambda r, n: rig.aug_sampler(r, n, quiet=True))))
+        host_slabs = [{k: v.cpu().numpy() for k, v in s.items()} for s in slabs]
+        merged = {k: np.concatenate([s[k] for s in host_slabs]) for k in host_slabs[0]}
+        batches = [{**{k: v[bank["cache_idx"][i]] for k, v in merged.items()},
+                    **{k: v[i] for k, v in bank.items() if k != "cache_idx"}} for i in range(4)]
+        cached = rig.solver(make_cache_gather_loss(rig.aug_loss))
+        for k in (flow_warp_cuda, flow_warp_backward_cuda):
+            k.launches = 0
+        cached.solve_cached(iter([(slabs, bank)]), max_iter=4, log=lambda m: None)
+        torch.cuda.synchronize()
+        launches = (flow_warp_cuda.launches, flow_warp_backward_cuda.launches)
+        plain_params = []
+        for _ in range(2):
+            plain = rig.solver(make_augmented_loss(flownet_s_loss, H, W, seed=SEED))
+            for b in batches:
+                plain.step(b)
+            plain_params.append({k: v.detach().clone() for k, v in plain.net.state_dict().items()})
+        cache.stop()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = cached.net.state_dict()
+    diff = max((got[k] - v).abs().max().item() for k, v in plain_params[0].items())
+    spread = max((plain_params[1][k] - v).abs().max().item() for k, v in plain_params[0].items())
+    moved = max((got[k] - v.to(dev)).abs().max().item() for k, v in rig.start_net.state_dict().items())
+    sh, sw = CHAIRS_FRAME
+    print(f"[cache] solve_cached K=4 from a 2x{CACHE_SLAB} cache vs the same 4 batches gathered on the host "
+          f"through Solver.step, flownets f32 {W}x{H} b{N} from {sw}x{sh}, noise 0, cuDNN deterministic: "
+          f"parameters max abs diff {diff:.3g} (two plain runs {spread:.3g}; moved from the start {moved:.3g}); "
+          f"launches (K1, K2) in the 4 cached steps {launches}, expected (8, 0)")
+    check(moved > 0, "the cached steps did not move the parameters")
+    check(diff <= spread, f"solve_cached vs Solver.step: parameters differ by {diff} (plain spread {spread})")
+    check(launches == (8, 0), f"cached steps' launches (K1, K2) {launches}, expected (8, 0): 2 K1 a step")
+    kernels["flow_warp"]["cache_launches"] = launches[0] // 4
+    return dict(max_abs_diff=diff, plain_spread=spread, launches=launches)
+
+
+def id_samples(start: int = 0):
+    """An endless stream of 512x384 transport samples, each filled with its
+    own id: images id % 251, flow id % 32000 in both channels, and ``sid``."""
+    sh, sw = CHAIRS_FRAME
+    i = start
+    while True:
+        img = np.full((sh, sw, 3), i % 251, np.uint8)
+        yield {"img0": img, "img1": img, "flow": np.full((sh, sw, 2), i % 32000, np.int16), "sid": np.int32(i)}
+        i += 1
+
+
+def cache_hazard(rig: CacheRig, steps: int = 64, k: int = 8) -> dict:
+    """The refresh hazard: a cache of 4 x 16 samples each filled with its
+    own id (:func:`id_samples`), refreshed unthrottled (``min_echo=0``,
+    ``link_duty=1``) while ``steps`` steps of ``solve_cached`` run at K =
+    ``k``. A chunk reads its slabs once, when it concatenates them, and
+    the host drops them when it draws the next chunk; a FlowNetS step
+    queues about 700 launches, and the card's queue of pending launches
+    (about 1024) keeps the host within two steps of the card, so under the
+    net no read of a slab can still be pending when the host drops it. The
+    steps here are the gather and a one-parameter loss (a few launches), the
+    card sleeps about 0.4 s before each chunk, and the host draws each next
+    chunk only after the refresh swapped a slab: the card falls chunks
+    behind, and swapped-out slabs lose their last reference while their
+    reads are still queued. Every gathered sample must be constant and carry
+    the id that the host's copy of its slab held at its index when its
+    chunk was drawn: a slab freed and reused by a later upload would show a
+    newer id, a torn one a mixed sample. ``slabs_swapped`` > 0. After a
+    warm-up chunk the chunks run under ``torch.cuda.set_sync_debug_mode(
+    "error")``: no call in them waits for the card."""
+    from flownet2_tpu_torch.data.device_cache import CacheChunks, DeviceSampleCache, make_cache_gather_loss
+    from flownet2_tpu_torch.train import Solver, SolverConfig
+
+    class IdCache(DeviceSampleCache):
+        """Hangs on each uploaded slab's ``sid`` tensor the ids its host copy held."""
+
+        def _build_slab_host(self):
+            host = super()._build_slab_host()
+            self._ids = host["sid"].numpy().copy()
+            return host
+
+        def _build_and_upload(self):
+            slab, event = super()._build_and_upload()
+            slab["sid"].host_ids = self._ids
+            return slab, event
+
+    seen, chunks, resident = [], [], []
+
+    def inspect(net, batch):
+        per = [batch[key].flatten(1) for key in ("img0", "img1", "flow")]
+        stats = [t for x in per for t in (x.amin(1).long(), x.amax(1).long())]
+        seen.append(torch.stack(stats + [batch["sid"].long()], dim=1))
+        return (net.weight - per[0].float().mean() / 255).square().sum(), {}
+
+    hazard = IdCache(id_samples(), slab_samples=CACHE_SLAB, n_slabs=CACHE_SLABS, device=rig.dev, min_echo=0,
+                     link_duty=1.0)
+
+    def recorded(it):
+        for slabs, bank in it:
+            # the chunk's draws let the refresh swap once more (min_echo 0)
+            swapped = hazard.slabs_swapped
+            torch.cuda._sleep(HAZARD_SLEEP_CYCLES)  # queued before the chunk's reads of its slabs
+            resident.append(np.concatenate([s["sid"].host_ids for s in slabs]))
+            chunks.append(bank["cache_idx"])
+            yield slabs, bank
+            deadline = time.perf_counter() + 10
+            while hazard.slabs_swapped == swapped and time.perf_counter() < deadline:
+                time.sleep(0.002)
+
+    net = torch.nn.Module()
+    net.weight = torch.nn.Parameter(torch.zeros(1, 1, 1, 1))
+    trainer = Solver(SolverConfig(solver_type="sgd", base_lr=1e-3, max_iter=steps), make_cache_gather_loss(inspect),
+                     net, device=rig.dev, display=0)
+    trainer.sync_bound = 1 << 30  # let the host queue ahead of the card
+    chunk_iter = recorded(iter(CacheChunks(hazard, N, k, seed=SEED)))
+    try:
+        trainer.solve_cached(chunk_iter, max_iter=k, log=lambda m: None)  # the warm-up chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # nothing in a chunk may wait for the card: a synchronizing call raises
+        torch.cuda.set_sync_debug_mode("error")
+        trainer.solve_cached(chunk_iter, max_iter=steps, log=lambda m: None)
+        torch.cuda.set_sync_debug_mode("default")
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        hazard.stop()
+    stats = hazard.stats()
+    got = torch.stack(seen).cpu().numpy()  # (steps, N, 7)
+    ids = np.stack(resident)  # (chunks, slabs * slab), the host's record
+    expect = np.stack([ids[c][chunks[c][i]] for c in range(steps // k) for i in range(k)])
+    constant = all((got[..., j] == got[..., j + 1]).all() for j in (0, 2, 4))
+    own_ids = bool((got[..., 0] == got[..., 6] % 251).all() and (got[..., 4] == got[..., 6] % 32000).all())
+    resident_ok = bool((got[..., 6] == expect).all())
+    distinct = len(np.unique(got[..., 6]))
+    print(f"[cache] refresh hazard: {CACHE_SLABS}x{CACHE_SLAB} id-filled 512x384 samples refreshed unthrottled "
+          f"(min_echo 0, link_duty 1) under {steps} solve_cached steps at K={k} (gather and a one-parameter loss), "
+          f"the card sleeping {HAZARD_SLEEP_CYCLES:.0e} cycles before each chunk, the next chunk drawn after a "
+          f"swap: {stats['slabs_swapped']} slabs swapped, {stats['samples_uploaded']} samples uploaded "
+          f"({stats['bytes_uploaded'] / 1e6:.0f} MB); {steps * N} gathered samples: constant {constant}, carrying "
+          f"their own id {own_ids}, each the id its slab's host copy held at its index when its chunk was drawn "
+          f"{resident_ok} ({distinct} distinct ids); after the warm-up chunk the host queued {steps - k} steps in "
+          f"{queued:.2f} s under sync debug mode 'error', the card finished them at {wall:.2f} s")
+    check(stats["slabs_swapped"] > 0, "the refresh swapped no slab")
+    check(wall > queued + 0.5, f"the card did not lag the host (queued {queued:.2f} s, done {wall:.2f} s)")
+    check(constant and own_ids and resident_ok, "a torn, stale or foreign sample was gathered")
+    return dict(stats, distinct_ids=distinct, queued_s=queued, wall_s=wall)
+
+
+def cache_times(rig: CacheRig, card: str) -> dict:
+    """ms a step by CUDA events, median of 32 back-to-back steps after
+    warm-ups: the resident batch, the step fed from ``BatchLoader`` over the
+    .flowrec, the cache at K = 1 and at K = 32 (default throttles); the idle
+    share by the profiler at K = 1 and K = 32."""
+    from flownet2_tpu_torch.data import BatchLoader
+    from flownet2_tpu_torch.data.augment_pipeline import make_flownet_augmenter
+    from flownet2_tpu_torch.data.device_cache import (
+        CacheBatches,
+        CacheChunks,
+        DeviceSampleCache,
+        cycle_dataset,
+        make_cache_gather_loss,
+    )
+    from flownet2_tpu_torch.train import make_multistep_train_step
+
+    dev = rig.dev
+    timed = {}
+    loader = iter(BatchLoader(rig.dataset, N, shuffle_seed=SEED, transform=make_flownet_augmenter(H, W)))
+    fed = rig.solver(rig.aug_loss)
+    timed["BatchLoader-fed"] = step_times(lambda: fed.step(next(loader)), CACHE_TIMED_STEPS, 6)
+    resident_batch = {k: torch.as_tensor(v, device=dev) for k, v in next(loader).items()}
+    timed["resident batch"] = step_times(lambda: fed.step(resident_batch), CACHE_TIMED_STEPS, 4)
+    del fed, loader, resident_batch
+
+    cache = DeviceSampleCache(cycle_dataset(rig.dataset, seed=SEED), slab_samples=CACHE_SLAB, n_slabs=CACHE_SLABS,
+                              device=dev)
+    try:
+        one = rig.solver(make_cache_gather_loss(rig.aug_loss))
+        batches = iter(CacheBatches(cache, N, seed=SEED, aug_sampler=rig.aug_sampler))
+        timed["cache K=1"] = step_times(lambda: one.step(next(batches)), CACHE_TIMED_STEPS, 4)
+        idle = {"K=1": idle_share(lambda: one.step(next(batches)), CACHE_TIMED_STEPS // 2)}
+        del one
+        many = rig.solver(make_cache_gather_loss(rig.aug_loss))
+        run = make_multistep_train_step(many._loss_fn, many.optimizer)
+        chunk_iter = iter(CacheChunks(cache, N, 32, seed=SEED, aug_sampler=rig.aug_sampler))
+        timed["cache K=32"] = [t / 32 for t in step_times(lambda: run(many.net, *next(chunk_iter)), 2, 1)]
+        idle["K=32"] = idle_share(lambda: run(many.net, *next(chunk_iter)), 1)
+    finally:
+        cache.stop()
+    stats = cache.stats()
+    medians = {k: statistics.median(v) for k, v in timed.items()}
+    sh, sw = CHAIRS_FRAME
+    print(f"[times] train step flownets f32 {W}x{H} b{N} augmented from {sw}x{sh} (.flowrec, {CACHE_FILE_SAMPLES} "
+          f"samples), ms a step by CUDA events, median of {CACHE_TIMED_STEPS} back-to-back steps [quartiles]: "
+          + ", ".join(f"{k} {quartiles(v)}" for k, v in timed.items())
+          + f" (K=32: 2 chunks of 32 steps, each / 32); device idle share by the profiler: K=1 {idle['K=1']:.3f} "
+          f"over {CACHE_TIMED_STEPS // 2} steps, K=32 {idle['K=32']:.3f} over one chunk; the timed cache "
+          f"{CACHE_SLABS}x{CACHE_SLAB} at default throttles swapped {stats['slabs_swapped']} slabs ({card})")
+    check(all(np.isfinite(v) and v > 0 for v in medians.values()), f"step times {medians}")
+    return dict(medians=medians, idle=idle, cache_stats=stats)
+
+
+def phase_cache(dev: torch.device, card: str, kernels: dict) -> dict:
+    """The device sample cache and K-step training (``data/device_cache.py``,
+    ``Solver.solve_cached``) on the r5 recipe's net, FlowNetS at 448x320 b8,
+    augmented from 512x384 transport samples of a synthetic .flowrec:
+    :func:`cache_equality`, :func:`cache_hazard`, :func:`cache_times`."""
+    results, seconds = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        t0 = time.perf_counter()
+        rig = CacheRig(dev, tmp)
+        seconds["setup"] = time.perf_counter() - t0
+        for label, fn in (("equality", lambda: cache_equality(rig, kernels)), ("hazard", lambda: cache_hazard(rig)),
+                          ("times", lambda: cache_times(rig, card))):
+            t0 = time.perf_counter()
+            results[label] = fn()
+            seconds[label] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[cache] parts (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return results
+
+
 def main() -> int:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2527,6 +2891,7 @@ def main() -> int:
     timed("augment", phase_augment, dev, smi, kernels)
     timed("tools", phase_tools, dev, smi)
     timed("dp", phase_dp, dev, smi)
+    timed("cache", phase_cache, dev, smi, kernels)
     print(f"[times] phases (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; "
           f"all {time.perf_counter() - t0:.1f}")
     order = ("flow_warp", "correlation", "flow_warp_backward", "correlation_backward", "head_conv", "head_conv_bf16",

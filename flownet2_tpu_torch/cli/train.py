@@ -7,7 +7,8 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
         [--write-augmented DIR] [--loss KEY] [--schedule S_long] [--base-lr LR]
         [--solver adam] [--batch 8] [--crop 320x448] [--iter-size 1] [--max-iter N]
         [--weights W] [--snapshot DIR/iter_NNNNNNN] [--snapshot-dir DIR]
-        [--snapshot-interval N] [--display N] [--seed S] [--gpu N|all|i,j | --device cpu]
+        [--snapshot-interval N] [--display N] [--seed S] [--device-cache N [--cache-slab 64]
+        [--steps-per-dispatch K]] [--gpu N|all|i,j | --device cpu]
 
 - augmentation is on by default, as the paper trains: the loader hands
   over batches at source resolution with the sampled coefficients, and the
@@ -47,14 +48,27 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
   writes snapshots and, with ``--write-augmented``, the global batch,
   gathered at display steps. One picked card trains in this process. A
   card asked for and not present, or a duplicate, exits with an error,
-  and so does the whole run when a rank fails.
+  and so does the whole run when a rank fails;
+- ``--device-cache N`` trains from the device sample cache
+  (``data/device_cache.py``): N samples (rounded up to whole slabs of
+  ``--cache-slab``, at least 2 slabs) held on the card in the transport
+  domain, refreshed from the dataset by a background thread, each batch
+  gathered on the card by index and augmented there (with
+  ``--no-augment`` the samples are center-cropped before caching).
+  ``--steps-per-dispatch K`` runs K iterations from one bank of indices and
+  coefficients uploaded in one copy (``Solver.solve_cached``; display,
+  test and snapshots at chunk boundaries); 0 means 32 with the cache, else
+  1. The run ends with ``Device cache: S slab refreshes, N samples
+  uploaded (M MB)``.
 
-Refused with a message: ``--device-cache`` and ``--steps-per-dispatch``
-(not in the port; the JAX CLI refuses the device cache with several
-devices too);
-``--model dispnetc`` without ``--no-augment`` (the augmentation transforms
-2-channel flow, not 1-channel disparity; so does the JAX package's); and
-``--recompute-mean`` with ``--iter-size`` above 1.
+Refused with a message: ``--device-cache`` with several cards (the cache
+feeds one), with ``--write-augmented``, with ``--iter-size`` above 1, and
+with ``--recompute-mean`` at K above 1 (the running mean needs each step's
+aux values), as in the JAX CLI; ``--steps-per-dispatch`` above 1 without
+``--device-cache`` (the JAX CLI ignores it); ``--model dispnetc`` without
+``--no-augment`` (the augmentation transforms 2-channel flow, not
+1-channel disparity; so does the JAX package's); and ``--recompute-mean``
+with ``--iter-size`` above 1.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 
@@ -97,16 +112,32 @@ def build_parser() -> argparse.ArgumentParser:
                    "display interval (AugmentationParameter.write_augmented)")
     p.add_argument("--gpu", default="0", help="CUDA card index, 'all', or a comma list of indices: one process a card")
     p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
-    # flags of the JAX CLI whose pieces are not ported yet: refused when set
-    p.add_argument("--device-cache", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--steps-per-dispatch", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--device-cache", type=int, default=0, metavar="N",
+                   help="hold a rolling cache of N samples on the card, refreshed from the dataset in the "
+                   "background, and gather each batch from it there (data/device_cache.py); one card")
+    p.add_argument("--cache-slab", type=int, default=64, metavar="K",
+                   help="samples a cache slab (the refresh's unit; --device-cache rounds up to whole slabs)")
+    p.add_argument("--steps-per-dispatch", type=int, default=0, metavar="K",
+                   help="with --device-cache: K iterations from one uploaded bank of indices and coefficients "
+                   "(Solver.solve_cached); display and snapshots at chunk boundaries. 0: 32 with the cache, else 1")
     return p
 
 
+def _steps_per_dispatch(args) -> int:
+    return args.steps_per_dispatch or (32 if args.device_cache else 1)
+
+
 def _refuse_unsupported(args) -> None:
-    for flag, value in (("--device-cache", args.device_cache), ("--steps-per-dispatch", args.steps_per_dispatch)):
-        if value:
-            raise SystemExit(f"{flag} is not ported to PyTorch yet")
+    steps = _steps_per_dispatch(args)
+    if steps > 1 and not args.device_cache:
+        raise SystemExit("--steps-per-dispatch above 1 runs chunks from the device cache; pass --device-cache")
+    if args.device_cache:
+        if args.write_augmented:
+            raise SystemExit("--device-cache does not support --write-augmented")
+        if args.iter_size > 1:
+            raise SystemExit("--device-cache draws one batch a step; it does not take --iter-size above 1")
+        if steps > 1 and args.recompute_mean:
+            raise SystemExit("--recompute-mean needs each step's aux values; use --steps-per-dispatch 1")
     if args.model == "dispnetc" and not args.no_augment:
         raise SystemExit("--model dispnetc trains on 1-channel disparity, which the augmentation cannot transform: "
                          "its ground-truth transform takes 2-channel flow, in the JAX package too; pass --no-augment")
@@ -171,13 +202,18 @@ def _devices(args) -> list[str]:
         raise SystemExit(str(e)) from None
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, cache_options: Optional[dict] = None) -> int:
+    """The CLI. ``cache_options``: keyword arguments for the device cache's
+    constructor beyond the flags (its throttles ``min_echo`` and
+    ``link_duty``), for scripts; no flag sets them."""
     args = build_parser().parse_args(argv)
     _refuse_unsupported(args)
     _loss_key(args)
     devices = _devices(args)
+    if args.device_cache and len(devices) > 1:
+        raise SystemExit("--device-cache is single-device: the cache feeds one card")
     if len(devices) == 1:
-        return train(args, devices[0])
+        return train(args, devices[0], cache_options=cache_options)
     return train_ranks(args, devices)
 
 
@@ -214,7 +250,7 @@ def _train_rank(group, args) -> int:
     return train(args, group.device, group=group)
 
 
-def train(args, device, *, group=None) -> int:
+def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> int:
     """The training run on ``device``: alone, or as this process's rank of
     a data-parallel ``group`` (``parallel.mesh.Group``)."""
     from flownet2_tpu_torch.checkpoint import init_params, load_into
@@ -263,6 +299,10 @@ def train(args, device, *, group=None) -> int:
         if args.recompute_mean > 0:
             means = [MeanRecompute(crop_h, crop_w, 3, window=args.recompute_mean, per_pixel=args.mean_per_pixel)
                      for _ in MEAN_KEYS]
+    if args.device_cache:
+        from flownet2_tpu_torch.data.device_cache import make_cache_gather_loss
+
+        loss_fn = make_cache_gather_loss(loss_fn)  # gather, then decode and augment
     with torch.device("meta"):
         net = NETS[args.model]()
     load_into(net, init_params(args.model, seed=args.seed))
@@ -281,9 +321,13 @@ def train(args, device, *, group=None) -> int:
     # with augmentation the batches stay at source resolution: the card
     # crops. In a group the loader is keyed and this rank's rows of each
     # global batch come out.
-    loader = BatchLoader(dataset, args.batch * args.iter_size * world, crop=None if augment else (crop_h, crop_w),
-                         shuffle_seed=args.seed, transform=transform,
-                         shard=(rank, world) if group is not None else None)
+    cache, steps = None, _steps_per_dispatch(args)
+    if args.device_cache:
+        cache, loader = _cache_loader(args, dataset, device, crop_h, crop_w, steps, cache_options or {})
+    else:
+        loader = BatchLoader(dataset, args.batch * args.iter_size * world, crop=None if augment else (crop_h, crop_w),
+                             shuffle_seed=args.seed, transform=transform,
+                             shard=(rank, world) if group is not None else None)
     last_batch = {}  # the batch of the latest step, for --write-augmented
 
     # The running mean attaches at step time, not in the prefetching
@@ -318,10 +362,49 @@ def train(args, device, *, group=None) -> int:
     where = device if group is None else f"{world} processes ({group.backend}), rank 0 on {device}"
     log(f"Training {args.model} ({loss_key}) on {args.dataset} ({len(dataset)} samples) on {where}, "
         f"{max_iter} iterations, crop {crop_h}x{crop_w}, {batch_text} x iter_size {args.iter_size}"
-        + (", augmented" if augment else ", center crops"))
-    solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook, on_step=on_step)
+        + (", augmented" if augment else ", center crops")
+        + (f", device cache {cache.stats()['capacity_samples']} samples, {steps} steps a dispatch" if cache else ""))
+    try:
+        if cache is not None and steps > 1:
+            solver.solve_cached(iter(loader), max_iter=max_iter)
+        else:
+            solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook, on_step=on_step)
+    finally:
+        if cache is not None:
+            cache.stop()
+    if cache is not None:
+        st = cache.stats()
+        log(f"Device cache: {st['slabs_swapped']} slab refreshes, {st['samples_uploaded']} samples uploaded "
+            f"({st['bytes_uploaded'] / 1e6:.0f} MB)")
     log(f"Optimization done, final smoothed loss {solver.smoothed_loss:.4f}")
     return 0
+
+
+def _cache_loader(args, dataset, device, crop_h: int, crop_w: int, steps: int, options: dict):
+    """(the device cache on ``device``, its iterator of batches at one step
+    a dispatch, else of (slabs, bank) chunks of ``steps`` steps)."""
+    from flownet2_tpu_torch.data.augment_pipeline import FlowNetAugConfig, sample_aug_arrays
+    from flownet2_tpu_torch.data.device_cache import CacheBatches, CacheChunks, DeviceSampleCache, cycle_dataset
+    from flownet2_tpu_torch.data.pipeline import center_crop
+
+    samples = cycle_dataset(dataset, seed=args.seed)
+    if args.no_augment:  # the augmented path crops on the card
+        samples = ({k: center_crop(v, (crop_h, crop_w)) for k, v in s.items()} for s in samples)
+        src_h, src_w = crop_h, crop_w
+    else:
+        src_h, src_w = dataset[0]["img0"].shape[:2]
+    n_slabs = max(2, -(-args.device_cache // args.cache_slab))
+    cache = DeviceSampleCache(samples, slab_samples=args.cache_slab, n_slabs=n_slabs, device=device, **options)
+    aug_sampler = None
+    if not args.no_augment:
+        config = FlowNetAugConfig()
+
+        def aug_sampler(rng, n):
+            return sample_aug_arrays(config, rng, n, src_h, src_w, crop_h, crop_w)
+
+    if steps > 1:
+        return cache, CacheChunks(cache, args.batch, steps, seed=args.seed, aug_sampler=aug_sampler)
+    return cache, CacheBatches(cache, args.batch, seed=args.seed, aug_sampler=aug_sampler)
 
 
 if __name__ == "__main__":

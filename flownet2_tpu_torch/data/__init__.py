@@ -2,7 +2,8 @@
 records, LMDB and LevelDB, read without their native libraries), the
 prefetching loader, and the training augmentation's host side and device
 application with its running mean (``aug_params``, ``augment_pipeline``,
-``mean``): flownet2_tpu/data without its device cache."""
+``mean``), and the device sample cache with its batch and chunk iterators
+(``device_cache``): flownet2_tpu/data."""
 
 from flownet2_tpu_torch.data.datasets import (
     KITTI,

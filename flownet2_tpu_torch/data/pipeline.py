@@ -23,6 +23,22 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 
 
+def center_crop(arr, crop: Optional[tuple[int, int]]):
+    """``arr`` (H, W, ...) center-cropped to ``crop`` (h, w); ``crop`` None
+    and a per-sample scalar (an LMDB item's label) pass through."""
+    if crop is None or np.ndim(arr) < 2:
+        return arr
+    ch, cw = crop
+    h, w = arr.shape[:2]
+    if (h, w) == (ch, cw):
+        return arr
+    if h < ch or w < cw:
+        raise ValueError(f"sample {h}x{w} smaller than crop {ch}x{cw}")
+    y0 = (h - ch) // 2
+    x0 = (w - cw) // 2
+    return arr[y0 : y0 + ch, x0 : x0 + cw]
+
+
 class BatchLoader:
     """Iterates batches {img0, img1, flow[, occ, label]} of the items' arrays
     stacked to (N, H, W, C), prefetched by ``num_threads`` background threads
@@ -60,6 +76,11 @@ class BatchLoader:
         transform: Optional[Callable[..., dict]] = None,
         shard: Optional[tuple[int, int]] = None,
     ):
+        from flownet2_tpu_torch.core.hostmem import tune_host_allocator
+
+        # the prefetch ring churns batch-sized host buffers every step;
+        # without this, glibc maps and unmaps each one (a page-zeroing tax)
+        tune_host_allocator()
         if len(dataset) == 0:
             raise ValueError("BatchLoader: empty dataset")
         if shard is not None and (batch_size % shard[1] or not 0 <= shard[0] < shard[1]):
@@ -109,19 +130,7 @@ class BatchLoader:
         return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
     def _center_crop(self, arr):
-        """``arr`` center-cropped to ``crop``; a per-sample scalar (an LMDB
-        item's label) passes through."""
-        if self.crop is None or np.ndim(arr) < 2:
-            return arr
-        ch, cw = self.crop
-        h, w = arr.shape[:2]
-        if (h, w) == (ch, cw):
-            return arr
-        if h < ch or w < cw:
-            raise ValueError(f"sample {h}x{w} smaller than crop {ch}x{cw}")
-        y0 = (h - ch) // 2
-        x0 = (w - cw) // 2
-        return arr[y0 : y0 + ch, x0 : x0 + cw]
+        return center_crop(arr, self.crop)
 
     def __iter__(self) -> Iterator[dict]:
         if self.shard is not None:

@@ -46,14 +46,24 @@ def _axis_weights_down(in_size: int, out_size: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+@lru_cache(maxsize=256)
+def _axis_weights_down_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_axis_weights_down` on ``device``, copied there once: a copy
+    per call would be a blocking copy, which waits for every step queued
+    before it. A normal tensor even when the first call runs under
+    inference_mode (the cache outlives that call)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_axis_weights_down(in_size, out_size)).to(device)
+
+
 @torch.no_grad()
 def downsample_nan_aware(x: torch.Tensor, out_height: int, out_width: int) -> torch.Tensor:
     """Downsample (..., H, W) -> (..., out_height, out_width), e.g. NCHW flow."""
     in_h, in_w = x.shape[-2], x.shape[-1]
     if (in_h, in_w) == (out_height, out_width):
         return x
-    w_h = torch.from_numpy(_axis_weights_down(in_h, out_height)).to(x.device)  # (oh, h)
-    w_w = torch.from_numpy(_axis_weights_down(in_w, out_width)).to(x.device)  # (ow, w)
+    w_h = _axis_weights_down_on(in_h, out_height, x.device)  # (oh, h)
+    w_w = _axis_weights_down_on(in_w, out_width, x.device)  # (ow, w)
 
     def bilinear(z):
         return torch.matmul(torch.matmul(w_h, z), w_w.T)

@@ -30,11 +30,15 @@ from flownet2_tpu_torch.ops.downsample import downsample_nan_aware
 
 
 def _nan_mask_and_norm(diff: torch.Tensor, normalize_by_num_entries: bool):
+    """The finite mask and the divisor: a tensor (the valid entries over the
+    channels) or the batch size as a Python number. A tensor made from the
+    batch size on a card would be a blocking copy, which waits for every
+    step queued before it."""
     mask = torch.isfinite(diff)
     if normalize_by_num_entries:
         norm = torch.clamp(mask.float().sum() / diff.shape[1], min=1.0)
     else:
-        norm = torch.tensor(float(diff.shape[0]), device=diff.device)
+        norm = float(diff.shape[0])
     return mask, norm
 
 

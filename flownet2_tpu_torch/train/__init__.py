@@ -7,11 +7,12 @@
 - ``objectives``  — the per-net and per-stage losses, the joint FlowNet2 loss,
                     and bf16 compute over float32 master weights.
 - ``solver``      — the train loop: iter_size accumulation, smoothed loss,
-                    snapshot and restore, signal actions.
+                    snapshot and restore, signal actions, and the K-step
+                    loop of the device cache (``solve_cached``).
 """
 
 from flownet2_tpu_torch.train.lr_policies import FLOWNET_SCHEDULES, lr_policy
-from flownet2_tpu_torch.train.solver import Solver, make_train_step
+from flownet2_tpu_torch.train.solver import Solver, make_multistep_train_step, make_train_step
 from flownet2_tpu_torch.train.solvers import SolverConfig, make_solver
 
 __all__ = [
@@ -19,6 +20,7 @@ __all__ = [
     "Solver",
     "SolverConfig",
     "lr_policy",
+    "make_multistep_train_step",
     "make_solver",
     "make_train_step",
 ]

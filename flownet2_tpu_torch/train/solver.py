@@ -11,6 +11,9 @@ reference src/caffe/solver.cpp).
   metric every ``test_interval`` (``test_fn(net)``, solver.cpp:327-410),
   snapshots every ``snapshot_interval``, and the SIGINT/SIGHUP actions
   (stop, snapshot) checked once per iteration;
+- ``make_multistep_train_step`` and ``Solver.solve_cached``: K steps a
+  chunk from the device sample cache (``data.device_cache``), one upload of
+  the chunk's indices and coefficients, the single step's math;
 - ``loss_schedule``: an Lpq episode schedule (``ops/losses.LpqSchedule``);
   the loss takes the episode of each iteration, and the step is rebuilt
   when it changes (the reference swaps the Lpq exponents at episode
@@ -104,6 +107,62 @@ def make_train_step(
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     return step
+
+
+def upload_bank(bank: dict, device) -> dict:
+    """A chunk's bank of host arrays as tensors on ``device``. To a card the
+    arrays cross as ONE copy from a pinned buffer (``non_blocking``: the
+    host does not wait for it); on the CPU they are the arrays themselves."""
+    device = torch.device(device)
+    arrays = {k: np.ascontiguousarray(v) for k, v in bank.items()}
+    if device.type != "cuda":
+        return {k: torch.from_numpy(a) for k, a in arrays.items()}
+    offsets, total = {}, 0
+    for k, a in arrays.items():
+        total = -(-total // 8) * 8  # each array 8-byte aligned, so that it can be viewed in its type
+        offsets[k] = total
+        total += a.nbytes
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    raw = host.numpy()
+    for k, a in arrays.items():
+        raw[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
+    on_card = host.to(device, non_blocking=True)
+    return {
+        k: on_card[offsets[k]:offsets[k] + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+        for k, a in arrays.items()
+    }
+
+
+def make_multistep_train_step(
+    loss_fn: Callable[[nn.Module, dict], tuple[torch.Tensor, dict]],
+    optimizer: CaffeSolver,
+) -> Callable[[nn.Module, tuple, dict], torch.Tensor]:
+    """K train steps from one bank: ``run(net, slabs, bank) -> losses[K]``,
+    a device vector, for the device cache (``data.device_cache.CacheChunks``).
+
+    ``slabs``: the cache's slab dicts; ``bank``: host arrays with leading
+    axis K, ``cache_idx`` (K, batch) indices into the slabs' concatenation
+    in slab order and the per-step ``aug_*`` coefficients. The
+    concatenation is made once a chunk, the bank crosses to the device in
+    one copy (:func:`upload_bank`), and step i is :func:`make_train_step`'s
+    step on row i: ``loss_fn`` (a ``make_cache_gather_loss`` objective) sees
+    the batch the single-step path sees, so the math is that path's. Nothing
+    here waits for the device; the per-step aux values are dropped."""
+    inner = make_train_step(loss_fn, optimizer)
+
+    def run(net, slabs, bank) -> torch.Tensor:
+        first = slabs[0]
+        merged = {
+            f"cache_{k}": torch.cat([s[k] for s in slabs]) if len(slabs) > 1 else first[k] for k in first
+        }
+        rows = upload_bank(bank, next(iter(first.values())).device)
+        losses = []
+        for i in range(rows["cache_idx"].shape[0]):
+            loss, _ = inner(net, {**merged, **{k: v[i] for k, v in rows.items()}})
+            losses.append(loss)
+        return torch.stack(losses)
+
+    return run
 
 
 class Solver:
@@ -312,6 +371,69 @@ class Solver:
         if self.snapshot_dir:
             self.snapshot()
 
+    def solve_cached(
+        self,
+        chunk_iter: Iterator,
+        *,
+        max_iter: Optional[int] = None,
+        log: Callable[[str], None] = print,
+    ) -> None:
+        """The device-cache loop: ``chunk_iter`` yields ``(slabs, bank)``
+        chunks (``data.device_cache.CacheChunks``), each of K iterations run
+        by :func:`make_multistep_train_step`. The math is :meth:`solve`'s;
+        all K losses enter the smoothed window, the host syncs once every
+        ``sync_bound`` iterations, and the display, test and snapshot
+        intervals and the signal actions are honoured at chunk boundaries
+        (at the first boundary at or past each interval). A last chunk that
+        would pass ``max_iter`` is cut to it.
+
+        Refused: a loss schedule (its episodes would quantize to the
+        chunk), ``iter_size`` above 1 (the chunk's steps take one
+        micro-batch each) and a data-parallel ``group`` (the cache holds
+        one device's samples)."""
+        if self._loss_schedule is not None:
+            raise ValueError("solve_cached does not support loss schedules (episode boundaries would quantize "
+                             "to the dispatch size); use solve()")
+        if self.group is not None:
+            raise ValueError("solve_cached is single-device (the device cache feeds one process)")
+        if self.config.iter_size != 1:
+            raise ValueError("solve_cached runs one micro-batch a step; iter_size > 1 would change the effective "
+                             "batch and the gradient scale: use solve()")
+        run = make_multistep_train_step(self._loss_fn, self.optimizer)
+        max_iter = self.config.max_iter if max_iter is None else max_iter
+        t0, disp_iter = time.time(), self.iteration
+        while self.iteration < max_iter:
+            slabs, bank = next(chunk_iter)
+            k = int(bank["cache_idx"].shape[0])
+            if k > max_iter - self.iteration:  # the last, partial chunk
+                k = max_iter - self.iteration
+                bank = {n: v[:k] for n, v in bank.items()}
+            losses = run(self.net, tuple(slabs), bank)
+            self.iteration += k
+            self._loss_window.extend(losses.unbind())
+            self._steps_since_sync += k
+            if self._steps_since_sync >= self.sync_bound:
+                self._steps_since_sync = 0
+                float(losses[-1])
+            it = self.iteration
+            if _crossed(it, k, self.display):
+                rate = (it - disp_iter) / max(time.time() - t0, 1e-9)
+                t0, disp_iter = time.time(), it
+                log(f"Iteration {it}, loss = {self.smoothed_loss:.6f} ({rate:.2f} iter/s)")
+                self.history.append((it, self.smoothed_loss))
+            if self.test_fn and _crossed(it, k, self.test_interval):
+                self.test(log)
+            if self.snapshot_dir and _crossed(it, k, self.snapshot_interval):
+                self.snapshot()
+            action = self._take_action()
+            if action == "stop":
+                log(f"Stopping early at iteration {it} (signal).")
+                break
+            if action == "snapshot":
+                self.snapshot()
+        if self.snapshot_dir:
+            self.snapshot()
+
     # -- checkpointing (reference Snapshot/Restore, solver.cpp:412-483)
     def snapshot(self) -> str:
         """Write ``iter_NNNNNNN.npz`` and ``.pt``; return their common prefix.
@@ -361,6 +483,12 @@ class Solver:
                     raise ValueError(f"parameter {key}: {got} vs {tuple(dst.shape)}")
         if self.group is not None:
             broadcast_module(self.net, self.group)
+
+
+def _crossed(it: int, k: int, interval: int) -> bool:
+    """Whether the chunk of ``k`` iterations ending at ``it`` crossed a
+    multiple of ``interval`` (0: never)."""
+    return bool(interval) and it // interval > (it - k) // interval
 
 
 def _silent(_: str) -> None:

@@ -9,9 +9,15 @@ the nets better?
   iterations) once for each of ``--train-seeds`` (default 3, the JAX run's
   seed: it seeds the weights, the sample order and the augmentation);
   cli.test scores the held-out split at initialisation (``random``, seed 0)
-  and at every snapshot. The JAX run also used a device cache
-  and 32 steps a dispatch, which the port does not have; the data and the
-  optimization are the same;
+  and at every snapshot. ``--r5-pipeline cache`` (the default) trains as
+  run_r5.sh does, from the device cache (``--device-cache 256 --cache-slab
+  64 --steps-per-dispatch 32``); ``--r5-min-echo E`` sets the cache's echo
+  throttle (a swap after 64 * E draws; default the cache's 0.25): 16 swaps
+  a slab every 4 chunks, about 24 swaps by 3008 iterations, the JAX run's
+  turnover (48 swaps in 6016, runs/synth/log_train.txt). ``--r5-pipeline
+  loader`` feeds cli.train from BatchLoader, each sample once an epoch;
+  ``--split PREFIX`` keeps the split at PREFIX (and reuses one found
+  there) instead of a temporary directory;
 - ``overfit``: tools.overfit for ``--overfit-iters`` iterations (cosine
   decay) in float32 and in bfloat16 on 8 synthetic FlyingChairs-layout
   pairs (synth_dataset's default settings, 384x512), against its 0.5
@@ -25,7 +31,8 @@ cascade runs use the card. Each tool's own output goes to
 each, to standard output, with the card's name and power limit.
 
     python3 scripts/convergence_runs.py [--out build/convergence] [--runs r5,overfit,cascade]
-        [--r5-iters 3008] [--train-seeds 3[,5,...]] [--overfit-iters 2000] [--cascade-iters 800]
+        [--r5-iters 3008] [--train-seeds 3[,5,...]] [--r5-pipeline cache|loader] [--r5-min-echo E]
+        [--split PREFIX] [--overfit-iters 2000] [--cascade-iters 800]
 """
 
 from __future__ import annotations
@@ -41,6 +48,10 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+# cli.train with device-cache constructor options (JSON in argv[1]), which
+# no flag of the CLI sets
+TRAIN_WITH_OPTIONS = ("import json, sys; from flownet2_tpu_torch.cli.train import main; "
+                      "sys.exit(main(sys.argv[2:], cache_options=json.loads(sys.argv[1])))")
 
 
 def run(cmd: list, log_path: str, timeout: float) -> tuple[int, str, float]:
@@ -84,6 +95,11 @@ def main(argv=None) -> int:
     p.add_argument("--runs", default="r5,overfit,cascade")
     p.add_argument("--r5-iters", type=int, default=3008)
     p.add_argument("--train-seeds", default="3", help="comma list: one r5 training run per seed")
+    p.add_argument("--r5-pipeline", default="cache", choices=("cache", "loader"),
+                   help="cache: run_r5.sh's device cache and 32 steps a dispatch; loader: BatchLoader")
+    p.add_argument("--r5-min-echo", type=float, default=None,
+                   help="the device cache's min_echo (default the cache's own); 16: the JAX run's turnover")
+    p.add_argument("--split", default=None, help="keep the r5 split at this prefix, reusing one found there")
     p.add_argument("--overfit-iters", type=int, default=2000)
     p.add_argument("--cascade-iters", type=int, default=800)
     args = p.parse_args(argv)
@@ -106,8 +122,10 @@ def main(argv=None) -> int:
             json.dump(results, f, indent=1)
 
     gen = None
-    prefix = os.path.join(data, "synth")
-    if "r5" in runs:  # the CPU writes the 2048 samples while the card runs the rest
+    prefix = os.path.abspath(args.split) if args.split else os.path.join(data, "synth")
+    have_split = all(os.path.exists(prefix + f"_{part}.flowrec") for part in ("train", "eval"))
+    if "r5" in runs and not have_split:  # the CPU writes the 2048 samples while the card runs the rest
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
         gen = subprocess.Popen([sys.executable, "-m", "flownet2_tpu_torch.tools.synth_dataset", "--n", "2048",
                                 "--n-eval", "64", "--out", prefix, "--seed", "11"], cwd=ROOT,
                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -144,39 +162,51 @@ def main(argv=None) -> int:
             print(f"[convergence] overfit_cascade {args.cascade_iters} iterations a stage: "
                   f"{text.strip().splitlines()[-2]} (exit {rc}, {secs:.1f} s) ({card})", flush=True)
             save()
-        if "r5" in runs:
+        if "r5" in runs and gen is not None:
             gen_out = gen.communicate(timeout=3600)[0]
             if gen.returncode != 0:
                 raise RuntimeError(f"synth_dataset: exit {gen.returncode}\n{gen_out[-2000:]}")
             print(f"[convergence] synth_dataset 2048 + 64 samples: {time.perf_counter() - t_gen:.1f} s", flush=True)
+        if "r5" in runs:
             init = heldout_epe("random", prefix + "_eval.flowrec", os.path.join(out, "r5_eval_init.log"))
             runs_out = []
+            pipeline = args.r5_pipeline
+            if pipeline == "cache":
+                pipeline += f", min_echo {args.r5_min_echo if args.r5_min_echo is not None else 'default'}"
+            tag = args.r5_pipeline + ("" if args.r5_min_echo is None else f"_echo{args.r5_min_echo:g}")
             for seed in (int(v) for v in args.train_seeds.split(",")):
-                snaps = os.path.join(data, f"snaps_seed{seed}")
-                rc, text, secs = run([sys.executable, "-u", "-m", "flownet2_tpu_torch.cli.train", "--model",
-                                      "flownets", "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec",
-                                      "--crop", "320x448", "--batch", "8", "--max-iter", str(args.r5_iters),
-                                      "--schedule", "S_short", "--solver", "adam", "--base-lr", "2e-4", "--display",
-                                      "96", "--snapshot-dir", snaps, "--snapshot-interval", "1504", "--seed",
-                                      str(seed), "--gpu", "0"],
-                                     os.path.join(out, f"r5_train_seed{seed}.log"), 3600)
+                snaps = os.path.join(data, f"snaps_{tag}_seed{seed}")
+                cli = ["--model", "flownets", "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec",
+                       "--crop", "320x448", "--batch", "8", "--max-iter", str(args.r5_iters), "--schedule", "S_short",
+                       "--solver", "adam", "--base-lr", "2e-4", "--display", "96", "--snapshot-dir", snaps,
+                       "--snapshot-interval", "1504", "--seed", str(seed), "--gpu", "0"]
+                if args.r5_pipeline == "cache":
+                    cli += ["--device-cache", "256", "--cache-slab", "64", "--steps-per-dispatch", "32"]
+                options = {} if args.r5_min_echo is None else {"min_echo": args.r5_min_echo}
+                rc, text, secs = run([sys.executable, "-u", "-c", TRAIN_WITH_OPTIONS, json.dumps(options), *cli],
+                                     os.path.join(out, f"r5_train_{tag}_seed{seed}.log"), 3600)
                 if rc != 0:
                     raise RuntimeError(f"cli.train seed {seed}: exit {rc}")
+                cache_line = next((line for line in text.splitlines() if line.startswith("Device cache:")), None)
                 curve = [dict(iteration=0, weights="random-init", epe=init)]
                 for name in sorted(n for n in os.listdir(snaps) if n.endswith(".npz")):
                     it = int(name.split("_")[1].split(".")[0])
                     curve.append(dict(iteration=it, weights=name, epe=heldout_epe(
                         os.path.join(snaps, name), prefix + "_eval.flowrec",
-                        os.path.join(out, f"r5_eval_seed{seed}_{it:07d}.log"))))
-                runs_out.append(dict(seed=seed, train_seconds=secs, curve=curve))
-                print(f"[convergence] r5 recipe, training seed {seed}, held-out mean EPE: "
+                        os.path.join(out, f"r5_eval_{tag}_seed{seed}_{it:07d}.log"))))
+                runs_out.append(dict(seed=seed, pipeline=pipeline, train_seconds=secs, cache=cache_line, curve=curve))
+                print(f"[convergence] r5 recipe ({pipeline}), training seed {seed}, held-out mean EPE: "
                       f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)} (JAX TPU run, seed 3: "
-                      f"24.70 / 12.07 / 8.51); cli.train {secs:.1f} s ({card})", flush=True)
+                      f"24.70 / 12.07 / 8.51); {cache_line or 'no device cache'}; cli.train {secs:.1f} s ({card})",
+                      flush=True)
                 results["r5"] = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448",
-                                     runs=runs_out, jax_curve={"0": 24.6989, "1504": 12.0651, "3008": 8.5095})
+                                     pipeline=pipeline, runs=runs_out,
+                                     jax_curve={"0": 24.6989, "1504": 12.0651, "3008": 8.5095},
+                                     jax_cache="Device cache: 48 slab refreshes, 3328 samples uploaded (6543 MB) "
+                                     "in 6016 iterations")
                 save()
             finals = [r["curve"][-1]["epe"] for r in runs_out]
-            print(f"[convergence] r5 recipe, held-out mean EPE at {args.r5_iters} over seeds "
+            print(f"[convergence] r5 recipe ({pipeline}), held-out mean EPE at {args.r5_iters} over seeds "
                   f"{args.train_seeds}: {', '.join(f'{v:.4f}' for v in finals)} (min {min(finals):.4f}, max "
                   f"{max(finals):.4f}; JAX TPU run 8.5095) ({card})", flush=True)
             save()

@@ -514,17 +514,21 @@ def test_train_cli_recompute_mean_and_write_augmented(tmp_path, capsys):
     # --gpu: no card at all, a card past those present, a duplicate; never the CPU
     (["--no-augment", "--gpu", "all"], 0, "no CUDA device"),
     (["--no-augment", "--gpu", "0,1"], 1, r"card 1 not available \(1 present\)"),
-    (["--no-augment", "--device-cache", "64"], None, "--device-cache"),
-    (["--device-cache", "64"], None, "--device-cache"),  # with augmentation
     (["--gpu", "0,0"], 2, "duplicate"),  # with augmentation
-    (["--no-augment", "--steps-per-dispatch", "4"], None, "--steps-per-dispatch"),
+    # the device cache feeds one card, in the JAX CLI too, and refuses what it refuses
+    (["--device-cache", "64", "--gpu", "0,1"], 2, "single-device"),
+    (["--device-cache", "64", "--write-augmented", "aug"], None, "--write-augmented"),
+    (["--device-cache", "64", "--recompute-mean", "2"], None, "--steps-per-dispatch 1"),  # K 32 by default
+    # K > 1 without the cache: the JAX CLI ignores it
+    (["--no-augment", "--steps-per-dispatch", "4"], None, "pass --device-cache"),
     (["--recompute-mean", "2", "--iter-size", "2"], None, "--iter-size"),
     (["--no-augment", "--device", "cpu", "--loss", "flownet2-s1"], None, "does not train"),
     # DispNetC trains from packed disparity records, not from a flow layout
     (["--no-augment", "--device", "cpu", "--model", "dispnetc"], None, "disparity"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, cards, message):
-    """Refusals of what the port does not do, or the JAX package cannot do.
+    """Refusals of what the port does not do, or the JAX package cannot do
+    or refuses.
     ``cards``: the number of cards the CLI is told are present."""
     if cards is not None:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
@@ -551,6 +555,7 @@ import flownet2_tpu_torch.cli.train, flownet2_tpu_torch.ops.losses
 import flownet2_tpu_torch.data.augment_pipeline, flownet2_tpu_torch.data.aug_params, flownet2_tpu_torch.data.mean
 import flownet2_tpu_torch.ops.augment, flownet2_tpu_torch.ops.mean, flownet2_tpu_torch.tools.writers
 import flownet2_tpu_torch.parallel, flownet2_tpu_torch.tools.diag.bf16_parity
+import flownet2_tpu_torch.data.device_cache, flownet2_tpu_torch.core.hostmem
 assert not [m for m in sys.modules if blocked(m)]
 print("imported without jax")
 """
