@@ -23,10 +23,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from flownet2_tpu_torch.models import NETS
+from flownet2_tpu_torch.core import prng
+from flownet2_tpu_torch.models import NETS, FlowNet2
 
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
 _JAX_LEAVES = {v: k for k, v in _LEAF_NAMES.items()}
+# the cascade's sub-nets in the order its init splits the key among them
+_CASCADE_ORDER = ("flownetc", "flownets_1", "flownets_2", "flownetsd", "fusion")
 
 
 def flatten_params(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -109,27 +112,38 @@ def load_into(net: nn.Module, params: dict) -> nn.Module:
 
 
 def init_params(model: str = "flownet2", seed: int = 0) -> dict[str, np.ndarray]:
-    """Random weights for ``model`` in the JAX package's flat layout.
+    """Random weights for ``model`` in the JAX package's flat layout: bit for
+    bit the JAX package's ``MODEL_INITS[model](jax.random.PRNGKey(seed))``.
 
-    MSRA init drawn with ``numpy.random.default_rng(seed)``: weights
-    N(0, 2 / (k*k*Cin)), biases 0 — the distribution of
-    flownet2_tpu/ops/conv.py::init_conv_params. The numbers are not those of
-    the JAX package's ``random`` weights (its seeds and draw order differ);
-    to compare the two packages, save one set of weights and load it in both.
+    MSRA init: weights N(0, 2 / (k*k*Cin)), biases 0, the distribution of
+    flownet2_tpu/ops/conv.py::init_conv_params, drawn layer by layer with
+    ``numpy.random.default_rng``. A single net seeds it from the key's last
+    word, ``seed mod 2**32`` (models/common.py::ParamInit). The cascades
+    split the key five ways, one subkey per sub-net in the order of
+    models/flownet2.py::flownet2_init, and seed each sub-net's generator
+    from its subkey's last word (``core.prng`` computes the keys). Within a
+    net, layers are drawn in ``named_modules`` order, the JAX init's order.
     """
     if model not in NETS:
         raise ValueError(f"unknown model {model!r}; choose from {tuple(NETS)}")
     with torch.device("meta"):
         net = NETS[model]()
-    rng = np.random.default_rng(seed)
+    key = prng.prng_key(seed)
+    if isinstance(net, FlowNet2):
+        subkeys = prng.split(key, len(_CASCADE_ORDER))
+        parts = [(f"{name}/", getattr(net, name), sk) for name, sk in zip(_CASCADE_ORDER, subkeys)]
+    else:
+        parts = [("", net, key)]
     params = {}
-    for name, layer in net.named_modules():
-        if not isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
-            continue
-        k, cin, cout = layer.kernel_size[0], layer.in_channels, layer.out_channels
-        shape = (k, k, cout, cin) if isinstance(layer, nn.ConvTranspose2d) else (k, k, cin, cout)
-        std = (2.0 / (k * k * cin)) ** 0.5
-        key = name.replace(".", "/")
-        params[f"{key}/w"] = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
-        params[f"{key}/b"] = np.zeros((cout,), np.float32)
+    for prefix, sub, subkey in parts:
+        rng = np.random.default_rng(int(subkey[-1]))
+        for name, layer in sub.named_modules():
+            if not isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
+                continue
+            k, cin, cout = layer.kernel_size[0], layer.in_channels, layer.out_channels
+            shape = (k, k, cout, cin) if isinstance(layer, nn.ConvTranspose2d) else (k, k, cin, cout)
+            std = (2.0 / (k * k * cin)) ** 0.5
+            path = prefix + name.replace(".", "/")
+            params[f"{path}/w"] = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+            params[f"{path}/b"] = np.zeros((cout,), np.float32)
     return params

@@ -9,7 +9,7 @@ scripts/run-flownet.py):
 - ``weights``: the reference's Caffe weights (``.caffemodel`` binaryproto or
   ``.caffemodel.h5``, imported by ``models.import_caffe``), a flat ``.npz``
   in the JAX package's layout (``checkpoint.save_params``), or ``random``
-  for seeded random weights (seed 0);
+  for seeded random weights (seed 0: the JAX CLI's ``random``, bit for bit);
 - ``model``: flownets|flownetc|flownet2-sd|flownet2-cs|flownet2-css|flownet2|dispnetc, or
   a deploy-template path whose basename names one;
 - ``--gpu N`` runs on ``cuda:N``; ``--device`` names a device instead (``cpu``

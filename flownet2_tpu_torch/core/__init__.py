@@ -3,7 +3,7 @@ image file formats (``.flo``, PPM/PGM, PFM, KITTI's 16-bit flow PNG), the
 int16 flow codec of the packed formats, and the HDF5 subset of Caffe's
 ``.caffemodel.h5``. Counterparts of ``flownet2_tpu/core/{adapt,flow_io,
 codec,hdf5_lite}.py``, kept in the port so that it never imports the JAX
-package."""
+package; ``prng`` computes JAX's threefry keys for seeded weights."""
 
 from flownet2_tpu_torch.core.adapt import AdaptedGeometry, adapt_shape
 from flownet2_tpu_torch.core.codec import (

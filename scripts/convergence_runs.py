@@ -5,16 +5,22 @@ the nets better?
 - ``r5``: the recipe of runs/synth/run_r5.sh with the port's CLIs:
   tools.synth_dataset writes 2048 training and 64 held-out samples at
   384x512 (seed 11); cli.train trains FlowNetS on them (320x448 crops,
-  augmented, batch 8, S_short, Adam at 2e-4, snapshots every 1504
-  iterations) once for each of ``--train-seeds`` (default 3, the JAX run's
+  augmented, batch 8, S_short, Adam at 2e-4, 6016 iterations, snapshots
+  every 1504) once for each of ``--train-seeds`` (default 3, the JAX run's
   seed: it seeds the weights, the sample order and the augmentation);
   cli.test scores the held-out split at initialisation (``random``, seed 0)
-  and at every snapshot. ``--r5-pipeline cache`` (the default) trains as
-  run_r5.sh does, from the device cache (``--device-cache 256 --cache-slab
-  64 --steps-per-dispatch 32``); ``--r5-min-echo E`` sets the cache's echo
-  throttle (a swap after 64 * E draws; default the cache's 0.25): 16 swaps
-  a slab every 4 chunks, about 24 swaps by 3008 iterations, the JAX run's
-  turnover (48 swaps in 6016, runs/synth/log_train.txt). ``--r5-pipeline
+  and at every snapshot. Each run prints its held-out EPEs, the mean of its
+  display losses over iterations 1536-3008 and 3104-6016, and the TF32
+  flags its training process ran under; the JAX run's figures
+  (runs/synth/log_train.txt, runs/synth/epe_curve.json) stand beside them,
+  and with two seeds or more at 6016 iterations the script applies the
+  decision rule of PERF.md (``r5_decision``). ``--r5-pipeline cache`` (the
+  default) trains as run_r5.sh does, from the device cache
+  (``--device-cache 256 --cache-slab 64 --steps-per-dispatch 32``);
+  ``--r5-min-echo E`` sets the cache's echo throttle (a swap after 64 * E
+  draws; default the cache's 0.25): 16 swaps a slab every 4 chunks, 47
+  swaps in 6016 iterations, the JAX run's turnover (48 swaps in 6016,
+  runs/synth/log_train.txt). ``--r5-pipeline
   loader`` feeds cli.train from BatchLoader, each sample once an epoch;
   ``--split PREFIX`` keeps the split at PREFIX (and reuses one found
   there) instead of a temporary directory;
@@ -22,8 +28,14 @@ the nets better?
   decay) in float32 and in bfloat16 on 8 synthetic FlyingChairs-layout
   pairs (synth_dataset's default settings, 384x512), against its 0.5
   criterion at the supervised 1/4 resolution;
-- ``cascade``: tools.overfit_cascade through c, s1, s2, sd and fusion on the
-  same pairs, the cascade EPE after each stage.
+- ``cascade``: tools.overfit_cascade through c, s1, s2, sd and fusion from
+  ``init_params("flownet2", seed=0)`` on the 8 pairs of chip_smoke.py's
+  [tools] phase (384x512, seed 50, two layers, shifts up to 5 px), trained
+  at 448x320 as the JAX run took it (runs/cascade/log_*.txt): c, s1, s2 and
+  sd for ``--cascade-iters`` each in one invocation, then fusion for
+  ``--cascade-fusion-iters`` (default the same) ``--init-from`` its .npz.
+  The cascade EPE and seconds of each stage, then tools.diag.bf16_parity
+  on the trained weights and the same pairs (f32 and bf16 GT-EPE).
 
 The training split is written in a separate process while the overfit and
 cascade runs use the card. Each tool's own output goes to
@@ -31,8 +43,8 @@ cascade runs use the card. Each tool's own output goes to
 each, to standard output, with the card's name and power limit.
 
     python3 scripts/convergence_runs.py [--out build/convergence] [--runs r5,overfit,cascade]
-        [--r5-iters 3008] [--train-seeds 3[,5,...]] [--r5-pipeline cache|loader] [--r5-min-echo E]
-        [--split PREFIX] [--overfit-iters 2000] [--cascade-iters 800]
+        [--r5-iters 6016] [--train-seeds 3[,5,...]] [--r5-pipeline cache|loader] [--r5-min-echo E]
+        [--split PREFIX] [--overfit-iters 2000] [--cascade-iters 800] [--cascade-fusion-iters F]
 """
 
 from __future__ import annotations
@@ -40,7 +52,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -49,9 +63,14 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 # cli.train with device-cache constructor options (JSON in argv[1]), which
-# no flag of the CLI sets
-TRAIN_WITH_OPTIONS = ("import json, sys; from flownet2_tpu_torch.cli.train import main; "
-                      "sys.exit(main(sys.argv[2:], cache_options=json.loads(sys.argv[1])))")
+# no flag of the CLI sets; its last line is the TF32 flags it trained under
+TRAIN_WITH_OPTIONS = ("import json, sys, torch; from flownet2_tpu_torch.cli.train import main; "
+                      "rc = main(sys.argv[2:], cache_options=json.loads(sys.argv[1])); "
+                      "print('TF32: cudnn', torch.backends.cudnn.allow_tf32, 'matmul', "
+                      "torch.backends.cuda.matmul.allow_tf32); sys.exit(rc)")
+JAX_R5 = os.path.join(ROOT, "runs", "synth")  # run_r5.sh's outputs on the TPU
+HELD_OUT = (3008, 4512, 6016)  # the snapshots whose mean EPE the decision rule compares
+LOSS_WINDOWS = ((1536, 3008), (3104, 6016))
 
 
 def run(cmd: list, log_path: str, timeout: float) -> tuple[int, str, float]:
@@ -65,8 +84,9 @@ def run(cmd: list, log_path: str, timeout: float) -> tuple[int, str, float]:
     return proc.returncode, proc.stdout, time.perf_counter() - t0
 
 
-def write_pairs(root: str, n: int = 8, seed: int = 0) -> None:
-    """n FlyingChairs-layout pairs at 384x512, synth_dataset's default settings."""
+def write_pairs(root: str, n: int = 8, seed: int = 0, **settings) -> None:
+    """n FlyingChairs-layout pairs at 384x512 (synth_dataset's default
+    settings, or ``make_sample``'s keyword ``settings``)."""
     import numpy as np
 
     from flownet2_tpu_torch.core.flow_io import write_flo, write_ppm
@@ -75,10 +95,115 @@ def write_pairs(root: str, n: int = 8, seed: int = 0) -> None:
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
     for i in range(n):
-        img0, img1, flow = make_sample(rng)
+        img0, img1, flow = make_sample(rng, **settings)
         write_ppm(os.path.join(root, f"{i:07d}-img0.ppm"), img0)
         write_ppm(os.path.join(root, f"{i:07d}-img1.ppm"), img1)
         write_flo(os.path.join(root, f"{i:07d}-gt.flo"), flow)
+
+
+def display_losses(text: str) -> dict[int, float]:
+    """iteration -> display loss of a training log, up to its first
+    "Optimization done" (the JAX log goes on with a resumed run)."""
+    text = text.split("Optimization done")[0]
+    return {int(it): float(v) for it, v in re.findall(r"^Iteration (\d+), loss = (\S+)", text, re.M)}
+
+
+def loss_means(losses: dict[int, float]) -> list:
+    """Mean display loss over each of LOSS_WINDOWS (None where it has no line)."""
+    out = []
+    for lo, hi in LOSS_WINDOWS:
+        v = [x for it, x in losses.items() if lo <= it <= hi]
+        out.append(sum(v) / len(v) if v else None)
+    return out
+
+
+def jax_r5() -> dict:
+    """The JAX TPU run of run_r5.sh (seed 3): its held-out curve, display-loss
+    means and cache line."""
+    with open(os.path.join(JAX_R5, "epe_curve.json")) as f:
+        curve = {c["iteration"]: c["epe"] for c in json.load(f)["curve"] if c["iteration"] <= 6016}
+    with open(os.path.join(JAX_R5, "log_train.txt")) as f:
+        text = f.read()
+    cache = next(line for line in text.splitlines() if line.startswith("Device cache:"))
+    return dict(curve=curve, loss_means=loss_means(display_losses(text)), cache=cache)
+
+
+def r5_decision(port: list[dict], jax: dict) -> dict:
+    """PERF.md's rule for the run_r5.sh gap: closed when (a) the JAX run's
+    display-loss means over both windows lie within the port seeds' min-max
+    and (b) its mean held-out EPE over 3008, 4512 and 6016 lies within 2
+    sample standard deviations of the port seeds' mean of the same."""
+    a = []
+    for w in range(len(LOSS_WINDOWS)):
+        v = [r["loss_means"][w] for r in port]
+        a.append(dict(window=LOSS_WINDOWS[w], jax=jax["loss_means"][w], port_min=min(v), port_max=max(v),
+                      within=min(v) <= jax["loss_means"][w] <= max(v)))
+    held = [sum(r["epe"][it] for it in HELD_OUT) / len(HELD_OUT) for r in port]
+    jax_held = sum(jax["curve"][it] for it in HELD_OUT) / len(HELD_OUT)
+    mean, sd = statistics.mean(held), statistics.stdev(held)
+    b = dict(jax=jax_held, port_means=held, port_mean=mean, port_sd=sd, z=(jax_held - mean) / sd,
+             within=abs(jax_held - mean) <= 2 * sd)
+    return dict(a=a, b=b, closed=all(x["within"] for x in a) and b["within"])
+
+
+def stage_seconds(log: str) -> float:
+    """Seconds a stage trained, from its log's chunk rates (n iterations at r iter/s)."""
+    total, last = 0.0, 0
+    for it, rate in re.findall(r"^Iteration (\d+), loss = \S+ \((\S+) iter/s\)", log, re.M):
+        total += (int(it) - last) / float(rate)
+        last = int(it)
+    return total
+
+
+def cascade_run(pairs: str, work: str, out: str, iters: int, fusion_iters: int, card: str) -> dict:
+    """tools.overfit_cascade on ``pairs`` at 448x320 as the JAX run took it
+    (runs/cascade/log_*.txt): c, s1, s2 and sd for ``iters`` iterations
+    each, then fusion for ``fusion_iters`` from that invocation's .npz; then
+    tools.diag.bf16_parity on the result and the same pairs. The results
+    merge as the JAX run's runs/cascade/results.json does, with each stage's
+    iterations and seconds."""
+    import numpy as np
+
+    from flownet2_tpu_torch.tools.overfit import load_examples
+
+    tool = [sys.executable, "-m", "flownet2_tpu_torch.tools.overfit_cascade", "--data", pairs, "--gpu", "0"]
+    first, second = os.path.join(work, "cascade"), os.path.join(work, "cascade_fusion")  # 650 MB .npz each
+    legs = [("cascade", first, ["--iters", str(iters), "--stages", "c,s1,s2,sd"]),
+            ("cascade_fusion", second, ["--iters", str(fusion_iters), "--stages", "fusion",
+                                        "--init-from", os.path.join(first, "flownet2_staged.npz")])]
+    merged = dict(stages={}, invocations=[])
+    for name, d, extra in legs:
+        rc, text, secs = run(tool + extra + ["--out", d], os.path.join(out, f"{name}.log"), 3600)
+        with open(os.path.join(d, "results.json")) as f:
+            res = json.load(f)
+        merged.setdefault("init_epe", res["init_epe"])
+        for stage, r in res["stages"].items():
+            shutil.copy(os.path.join(d, f"log_{stage}.txt"), os.path.join(out, f"cascade_log_{stage}.txt"))
+            with open(os.path.join(d, f"log_{stage}.txt")) as f:
+                r.update(iters=int(extra[1]), seconds=stage_seconds(f.read()))
+            merged["stages"][stage] = r
+        merged["final_epe"] = res["final_epe"]
+        merged["invocations"].append(dict(argv=extra, exit=rc, seconds=secs))
+        print(f"[convergence] overfit_cascade {' '.join(extra)}: {text.strip().splitlines()[-2]} "
+              f"(exit {rc}, {secs:.1f} s) ({card})", flush=True)
+    for stage, r in merged["stages"].items():
+        print(f"[convergence] cascade stage {stage}: {r['iters']} iterations, {r['seconds'] / 60:.2f} min, loss "
+              f"{r['first_loss']:.4f} -> {r['final_loss']:.4f}, cascade EPE {r['cascade_epe']:.4f} ({card})", flush=True)
+
+    img0, img1, flow = load_examples(pairs, (320, 448))
+    pairs_npz = os.path.join(work, "cascade_pairs.npz")
+    np.savez(pairs_npz, img0=img0, img1=img1, flow=flow)
+    rc, text, secs = run([sys.executable, "-m", "flownet2_tpu_torch.tools.diag.bf16_parity", "--weights",
+                          os.path.join(second, "flownet2_staged.npz"), "--pairs", pairs_npz, "--gpu", "0"],
+                         os.path.join(out, "cascade_bf16_parity.log"), 600)
+    lines = text.strip().splitlines()[-3:]
+    if rc != 0 or not lines[0].startswith("f32  GT-EPE"):
+        raise RuntimeError(f"bf16_parity: exit {rc}\n{text[-2000:]}")
+    f32, bf16 = (float(line.split(":")[1].split()[0]) for line in lines[:2])
+    merged["bf16_parity"] = dict(f32_epe=f32, bf16_epe=bf16, delta=bf16 - f32, lines=lines)
+    print(f"[convergence] bf16_parity on the cascade's weights and its 8 pairs at 448x320: {' | '.join(lines)} "
+          f"({card})", flush=True)
+    return merged
 
 
 def heldout_epe(weights: str, eval_rec: str, log_path: str) -> float:
@@ -93,7 +218,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--out", default="build/convergence")
     p.add_argument("--runs", default="r5,overfit,cascade")
-    p.add_argument("--r5-iters", type=int, default=3008)
+    p.add_argument("--r5-iters", type=int, default=6016)
     p.add_argument("--train-seeds", default="3", help="comma list: one r5 training run per seed")
     p.add_argument("--r5-pipeline", default="cache", choices=("cache", "loader"),
                    help="cache: run_r5.sh's device cache and 32 steps a dispatch; loader: BatchLoader")
@@ -102,6 +227,8 @@ def main(argv=None) -> int:
     p.add_argument("--split", default=None, help="keep the r5 split at this prefix, reusing one found there")
     p.add_argument("--overfit-iters", type=int, default=2000)
     p.add_argument("--cascade-iters", type=int, default=800)
+    p.add_argument("--cascade-fusion-iters", type=int, default=None,
+                   help="the fusion stage's iterations (default --cascade-iters; the JAX run's 8000)")
     args = p.parse_args(argv)
     runs = args.runs.split(",")
 
@@ -131,10 +258,9 @@ def main(argv=None) -> int:
                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         t_gen = time.perf_counter()
     try:
-        pairs = os.path.join(data, "pairs")
-        if "overfit" in runs or "cascade" in runs:
-            write_pairs(pairs)
         if "overfit" in runs:
+            pairs = os.path.join(data, "pairs")
+            write_pairs(pairs)
             for dtype in ("float32", "bfloat16"):
                 rc, text, secs = run([sys.executable, "-m", "flownet2_tpu_torch.tools.overfit", "--data", pairs,
                                       "--iters", str(args.overfit_iters), "--cosine", "--dtype", dtype,
@@ -150,17 +276,11 @@ def main(argv=None) -> int:
                       f"{secs:.1f} s; full-res EPE at start {first}) ({card})", flush=True)
                 save()
         if "cascade" in runs:
-            casc = os.path.join(data, "cascade")  # its 650 MB .npz stays on the card's machine
-            rc, text, secs = run([sys.executable, "-m", "flownet2_tpu_torch.tools.overfit_cascade", "--data", pairs,
-                                  "--iters", str(args.cascade_iters), "--out", casc, "--gpu", "0"],
-                                 os.path.join(out, "cascade.log"), 3000)
-            with open(os.path.join(casc, "results.json")) as f:
-                results["cascade"] = dict(json.load(f), iters=args.cascade_iters, exit=rc, seconds=secs)
-            for name in os.listdir(casc):
-                if name.startswith("log_"):
-                    shutil.copy(os.path.join(casc, name), os.path.join(out, f"cascade_{name}"))
-            print(f"[convergence] overfit_cascade {args.cascade_iters} iterations a stage: "
-                  f"{text.strip().splitlines()[-2]} (exit {rc}, {secs:.1f} s) ({card})", flush=True)
+            # chip_smoke.py [tools]'s pairs: its SEED + 50, two layers, shifts up to 5 px
+            casc_pairs = os.path.join(data, "cascade_pairs")
+            write_pairs(casc_pairs, seed=50, n_layers=2, max_shift=5.0)
+            results["cascade"] = cascade_run(casc_pairs, data, out, args.cascade_iters,
+                                             args.cascade_fusion_iters or args.cascade_iters, card)
             save()
         if "r5" in runs and gen is not None:
             gen_out = gen.communicate(timeout=3600)[0]
@@ -168,6 +288,7 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"synth_dataset: exit {gen.returncode}\n{gen_out[-2000:]}")
             print(f"[convergence] synth_dataset 2048 + 64 samples: {time.perf_counter() - t_gen:.1f} s", flush=True)
         if "r5" in runs:
+            jax = jax_r5()
             init = heldout_epe("random", prefix + "_eval.flowrec", os.path.join(out, "r5_eval_init.log"))
             runs_out = []
             pipeline = args.r5_pipeline
@@ -188,27 +309,45 @@ def main(argv=None) -> int:
                 if rc != 0:
                     raise RuntimeError(f"cli.train seed {seed}: exit {rc}")
                 cache_line = next((line for line in text.splitlines() if line.startswith("Device cache:")), None)
+                tf32 = [line for line in text.splitlines() if line.startswith("TF32:")][-1]
                 curve = [dict(iteration=0, weights="random-init", epe=init)]
                 for name in sorted(n for n in os.listdir(snaps) if n.endswith(".npz")):
                     it = int(name.split("_")[1].split(".")[0])
                     curve.append(dict(iteration=it, weights=name, epe=heldout_epe(
                         os.path.join(snaps, name), prefix + "_eval.flowrec",
                         os.path.join(out, f"r5_eval_{tag}_seed{seed}_{it:07d}.log"))))
-                runs_out.append(dict(seed=seed, pipeline=pipeline, train_seconds=secs, cache=cache_line, curve=curve))
+                shutil.rmtree(snaps, ignore_errors=True)
+                means = loss_means(display_losses(text))
+                runs_out.append(dict(seed=seed, pipeline=pipeline, train_seconds=secs, cache=cache_line, tf32=tf32,
+                                     loss_means=means, curve=curve))
                 print(f"[convergence] r5 recipe ({pipeline}), training seed {seed}, held-out mean EPE: "
-                      f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)} (JAX TPU run, seed 3: "
-                      f"24.70 / 12.07 / 8.51); {cache_line or 'no device cache'}; cli.train {secs:.1f} s ({card})",
-                      flush=True)
+                      f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)}; display-loss means "
+                      f"{LOSS_WINDOWS}: {means}; {tf32}; {cache_line or 'no device cache'}; cli.train {secs:.1f} s "
+                      f"({card})", flush=True)
                 results["r5"] = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448",
-                                     pipeline=pipeline, runs=runs_out,
-                                     jax_curve={"0": 24.6989, "1504": 12.0651, "3008": 8.5095},
-                                     jax_cache="Device cache: 48 slab refreshes, 3328 samples uploaded (6543 MB) "
-                                     "in 6016 iterations")
+                                     iters=args.r5_iters, pipeline=pipeline, runs=runs_out, jax=jax)
                 save()
-            finals = [r["curve"][-1]["epe"] for r in runs_out]
-            print(f"[convergence] r5 recipe ({pipeline}), held-out mean EPE at {args.r5_iters} over seeds "
-                  f"{args.train_seeds}: {', '.join(f'{v:.4f}' for v in finals)} (min {min(finals):.4f}, max "
-                  f"{max(finals):.4f}; JAX TPU run 8.5095) ({card})", flush=True)
+            print(f"[convergence] r5 recipe ({pipeline}), {args.r5_iters} iterations; held-out EPE at "
+                  f"{' / '.join(str(it) for it in (1504,) + HELD_OUT)}, display-loss means over "
+                  f"{' and '.join(f'{lo}-{hi}' for lo, hi in LOSS_WINDOWS)} ({card}):", flush=True)
+            for name, epe, means, extra in [(f"port seed {r['seed']}", {c["iteration"]: c["epe"] for c in r["curve"]},
+                                             r["loss_means"], f"{r['tf32']}; {r['cache']}") for r in runs_out] + [
+                    ("JAX TPU run (runs/synth), seed 3", jax["curve"], jax["loss_means"], jax["cache"])]:
+                print(f"[convergence]   {name}: {' / '.join(f'{epe[it]:.4f}' if it in epe else '-' for it in (1504,) + HELD_OUT)}"
+                      f"; {' / '.join('-' if m is None else f'{m:.4f}' for m in means)}; {extra}", flush=True)
+            if len(runs_out) > 1 and args.r5_iters >= HELD_OUT[-1]:
+                results["r5"]["decision"] = d = r5_decision(
+                    [dict(loss_means=r["loss_means"], epe={c["iteration"]: c["epe"] for c in r["curve"]})
+                     for r in runs_out], jax)
+                for w in d["a"]:
+                    print(f"[convergence] rule (a), losses {w['window'][0]}-{w['window'][1]}: JAX {w['jax']:.4f}, port "
+                          f"{w['port_min']:.4f}-{w['port_max']:.4f}: {'within' if w['within'] else 'outside'}", flush=True)
+                b_ = d["b"]
+                print(f"[convergence] rule (b), mean held-out EPE over {HELD_OUT}: JAX {b_['jax']:.4f}, port "
+                      f"{', '.join(f'{v:.4f}' for v in b_['port_means'])} (mean {b_['port_mean']:.4f}, sample sd "
+                      f"{b_['port_sd']:.4f}, JAX at {b_['z']:+.2f} sd): {'within' if b_['within'] else 'outside'} 2 sd",
+                      flush=True)
+                print(f"[convergence] decision: the run_r5.sh gap is {'closed' if d['closed'] else 'open'}", flush=True)
             save()
     finally:
         if gen is not None and gen.poll() is None:
