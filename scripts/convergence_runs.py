@@ -23,7 +23,9 @@ the nets better?
   runs/synth/log_train.txt). ``--r5-pipeline
   loader`` feeds cli.train from BatchLoader, each sample once an epoch;
   ``--split PREFIX`` keeps the split at PREFIX (and reuses one found
-  there) instead of a temporary directory;
+  there) instead of a temporary directory; ``--r5-exact-f32`` trains with
+  cuDNN's TF32 off (exact float32, as the reference and the JAX package's
+  CPU route compute; the CLIs keep PyTorch's default, TF32 convolutions);
 - ``overfit``: tools.overfit for ``--overfit-iters`` iterations (cosine
   decay) in float32 and in bfloat16 on 8 synthetic FlyingChairs-layout
   pairs (synth_dataset's default settings, 384x512), against its 0.5
@@ -37,6 +39,12 @@ the nets better?
   The cascade EPE and seconds of each stage, then tools.diag.bf16_parity
   on the trained weights and the same pairs (f32 and bf16 GT-EPE).
 
+``--decide A.json[,B.json...]`` trains nothing and needs no card: it pools
+the r5 runs of earlier invocations' convergence.json files by arm (the TF32
+flags each trained under) and applies PERF.md's rules to them: rules (a)
+and (b) to the default arm and, when the gap stays open, the precision rule
+(``precision_decision``) to the two arms.
+
 The training split is written in a separate process while the overfit and
 cascade runs use the card. Each tool's own output goes to
 ``OUT/<run>.log``; the results go to ``OUT/convergence.json`` and, one line
@@ -44,7 +52,9 @@ each, to standard output, with the card's name and power limit.
 
     python3 scripts/convergence_runs.py [--out build/convergence] [--runs r5,overfit,cascade]
         [--r5-iters 6016] [--train-seeds 3[,5,...]] [--r5-pipeline cache|loader] [--r5-min-echo E]
-        [--split PREFIX] [--overfit-iters 2000] [--cascade-iters 800] [--cascade-fusion-iters F]
+        [--split PREFIX] [--r5-exact-f32] [--overfit-iters 2000] [--cascade-iters 800]
+        [--cascade-fusion-iters F]
+    python3 scripts/convergence_runs.py --decide A/convergence.json,B/convergence.json
 """
 
 from __future__ import annotations
@@ -64,8 +74,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 # cli.train with device-cache constructor options (JSON in argv[1]), which
 # no flag of the CLI sets; its last line is the TF32 flags it trained under
-TRAIN_WITH_OPTIONS = ("import json, sys, torch; from flownet2_tpu_torch.cli.train import main; "
-                      "rc = main(sys.argv[2:], cache_options=json.loads(sys.argv[1])); "
+# ("exact_f32": true in the JSON turns cuDNN's TF32 off before main)
+TRAIN_WITH_OPTIONS = ("import json, sys, torch; from flownet2_tpu_torch.cli.train import main\n"
+                      "options = json.loads(sys.argv[1])\n"
+                      "if options.pop('exact_f32', False):\n"
+                      "    torch.backends.cudnn.allow_tf32 = False\n"
+                      "rc = main(sys.argv[2:], cache_options=options)\n"
                       "print('TF32: cudnn', torch.backends.cudnn.allow_tf32, 'matmul', "
                       "torch.backends.cuda.matmul.allow_tf32); sys.exit(rc)")
 JAX_R5 = os.path.join(ROOT, "runs", "synth")  # run_r5.sh's outputs on the TPU
@@ -144,6 +158,79 @@ def r5_decision(port: list[dict], jax: dict) -> dict:
     b = dict(jax=jax_held, port_means=held, port_mean=mean, port_sd=sd, z=(jax_held - mean) / sd,
              within=abs(jax_held - mean) <= 2 * sd)
     return dict(a=a, b=b, closed=all(x["within"] for x in a) and b["within"])
+
+
+def precision_decision(default: list[dict], exact: list[dict], jax: dict) -> dict:
+    """PERF.md's rule naming precision as the cause of the later-loss gap:
+    the exact-float32 arm's mean display loss over 3104-6016 lies below the
+    default (TF32) arm's by more than 2 standard errors of the difference
+    (Welch), and the JAX run's mean over that window lies within the exact
+    arm's min-max."""
+    d, e = ([r["loss_means"][1] for r in runs] for runs in (default, exact))
+    diff = statistics.mean(d) - statistics.mean(e)
+    se = (statistics.variance(d) / len(d) + statistics.variance(e) / len(e)) ** 0.5
+    jax_late = jax["loss_means"][1]
+    below, covers = diff > 2 * se, min(e) <= jax_late <= max(e)
+    return dict(default_mean=statistics.mean(d), exact_mean=statistics.mean(e), diff=diff, se=se, below=below,
+                exact_min=min(e), exact_max=max(e), jax=jax_late, jax_within_exact=covers, named=below and covers)
+
+
+def train_rate(log: str) -> float:
+    """Iterations a second of a cli.train log over its display chunks after
+    the first (which holds the start-up and cuDNN's algorithm search)."""
+    rates = re.findall(r"^Iteration (\d+), loss = \S+ \((\S+) iter/s\)", log, re.M)
+    its = [int(it) for it, _ in rates]
+    secs = sum((b - a) / float(r) for a, b, (_, r) in zip(its, its[1:], rates[1:]))
+    return (its[-1] - its[0]) / secs
+
+
+def decide(paths: list[str]) -> int:
+    """Pool the r5 runs of several convergence.json files by arm (the TF32
+    flags each run trained under) and apply PERF.md's rules: r5_decision to
+    the default arm and, with an exact-float32 arm, precision_decision."""
+    arms: dict[str, list] = {"default": [], "exact": []}
+    jax = None
+    for path in paths:
+        with open(path) as f:
+            r5 = json.load(f)["r5"]
+        jax = r5["jax"]
+        for r in r5["runs"]:
+            arm = "exact" if "cudnn False" in r["tf32"] else "default"
+            arms[arm].append(dict(seed=r["seed"], tf32=r["tf32"], loss_means=r["loss_means"],
+                                  epe={c["iteration"]: c["epe"] for c in r["curve"]}, rate=r.get("iter_per_s")))
+    jax = dict(jax, curve={int(k): v for k, v in jax["curve"].items()})
+    for arm, runs in arms.items():
+        for r in runs:
+            held = sum(r["epe"][it] for it in HELD_OUT) / len(HELD_OUT)
+            print(f"[decide] {arm} seed {r['seed']}: {' / '.join(f'{r['epe'][it]:.4f}' for it in (1504,) + HELD_OUT)}"
+                  f"; mean {held:.4f}; {' / '.join(f'{m:.4f}' for m in r['loss_means'])}; {r['tf32']}"
+                  f"{'' if r['rate'] is None else f'; {r['rate']:.2f} iter/s'}")
+    d = r5_decision(arms["default"], jax)
+    for w in d["a"]:
+        print(f"[decide] rule (a), {len(arms['default'])} default seeds, losses {w['window'][0]}-{w['window'][1]}: "
+              f"JAX {w['jax']:.4f}, port {w['port_min']:.4f}-{w['port_max']:.4f}: "
+              f"{'within' if w['within'] else 'outside'}")
+    b = d["b"]
+    print(f"[decide] rule (b), mean held-out EPE over {HELD_OUT}: JAX {b['jax']:.4f}, port mean {b['port_mean']:.4f}, "
+          f"sample sd {b['port_sd']:.4f}, JAX at {b['z']:+.2f} sd: {'within' if b['within'] else 'outside'} 2 sd")
+    verdict = "closed as consistent" if d["closed"] else "open"
+    if not d["closed"] and len(arms["exact"]) > 1:
+        p = precision_decision(arms["default"], arms["exact"], jax)
+        print(f"[decide] precision: losses 3104-6016, default mean {p['default_mean']:.4f}, exact-f32 mean "
+              f"{p['exact_mean']:.4f} ({p['exact_min']:.4f}-{p['exact_max']:.4f}); difference {p['diff']:+.4f}, "
+              f"Welch SE {p['se']:.4f}: {'more' if p['below'] else 'not more'} than 2 SE below; JAX {p['jax']:.4f} "
+              f"{'within' if p['jax_within_exact'] else 'outside'} the exact arm's min-max")
+        same = {r["seed"]: r for r in arms["default"]}
+        pairs = [(r["seed"], r["loss_means"][1] - same[r["seed"]]["loss_means"][1]) for r in arms["exact"]
+                 if r["seed"] in same]
+        if pairs:  # not part of the rule: a seed does not repeat on the card
+            print(f"[decide] the same seeds in both arms, exact minus default over 3104-6016: "
+                  f"{', '.join(f'seed {s_}: {v:+.4f}' for s_, v in pairs)}; "
+                  f"mean {statistics.mean(v for _, v in pairs):+.4f}")
+        if p["named"] and not d["a"][1]["within"]:
+            verdict = "precision named as the cause"
+    print(f"[decide] decision: the run_r5.sh gap is {verdict}")
+    return 0
 
 
 def stage_seconds(log: str) -> float:
@@ -225,12 +312,18 @@ def main(argv=None) -> int:
     p.add_argument("--r5-min-echo", type=float, default=None,
                    help="the device cache's min_echo (default the cache's own); 16: the JAX run's turnover")
     p.add_argument("--split", default=None, help="keep the r5 split at this prefix, reusing one found there")
+    p.add_argument("--r5-exact-f32", action="store_true",
+                   help="train with cuDNN's TF32 off (torch.backends.cudnn.allow_tf32 = False): exact float32")
+    p.add_argument("--decide", default=None, metavar="JSON[,JSON...]",
+                   help="no training: pool the r5 runs of these convergence.json files by arm and apply the rules")
     p.add_argument("--overfit-iters", type=int, default=2000)
     p.add_argument("--cascade-iters", type=int, default=800)
     p.add_argument("--cascade-fusion-iters", type=int, default=None,
                    help="the fusion stage's iterations (default --cascade-iters; the JAX run's 8000)")
     args = p.parse_args(argv)
     runs = args.runs.split(",")
+    if args.decide:
+        return decide(args.decide.split(","))
 
     import torch
 
@@ -295,6 +388,9 @@ def main(argv=None) -> int:
             if pipeline == "cache":
                 pipeline += f", min_echo {args.r5_min_echo if args.r5_min_echo is not None else 'default'}"
             tag = args.r5_pipeline + ("" if args.r5_min_echo is None else f"_echo{args.r5_min_echo:g}")
+            if args.r5_exact_f32:
+                pipeline += ", exact float32"
+                tag += "_f32"
             for seed in (int(v) for v in args.train_seeds.split(",")):
                 snaps = os.path.join(data, f"snaps_{tag}_seed{seed}")
                 cli = ["--model", "flownets", "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec",
@@ -304,6 +400,8 @@ def main(argv=None) -> int:
                 if args.r5_pipeline == "cache":
                     cli += ["--device-cache", "256", "--cache-slab", "64", "--steps-per-dispatch", "32"]
                 options = {} if args.r5_min_echo is None else {"min_echo": args.r5_min_echo}
+                if args.r5_exact_f32:
+                    options["exact_f32"] = True
                 rc, text, secs = run([sys.executable, "-u", "-c", TRAIN_WITH_OPTIONS, json.dumps(options), *cli],
                                      os.path.join(out, f"r5_train_{tag}_seed{seed}.log"), 3600)
                 if rc != 0:
@@ -317,13 +415,13 @@ def main(argv=None) -> int:
                         os.path.join(snaps, name), prefix + "_eval.flowrec",
                         os.path.join(out, f"r5_eval_{tag}_seed{seed}_{it:07d}.log"))))
                 shutil.rmtree(snaps, ignore_errors=True)
-                means = loss_means(display_losses(text))
-                runs_out.append(dict(seed=seed, pipeline=pipeline, train_seconds=secs, cache=cache_line, tf32=tf32,
-                                     loss_means=means, curve=curve))
+                means, rate = loss_means(display_losses(text)), train_rate(text)
+                runs_out.append(dict(seed=seed, pipeline=pipeline, train_seconds=secs, iter_per_s=rate,
+                                     cache=cache_line, tf32=tf32, loss_means=means, curve=curve))
                 print(f"[convergence] r5 recipe ({pipeline}), training seed {seed}, held-out mean EPE: "
                       f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)}; display-loss means "
-                      f"{LOSS_WINDOWS}: {means}; {tf32}; {cache_line or 'no device cache'}; cli.train {secs:.1f} s "
-                      f"({card})", flush=True)
+                      f"{LOSS_WINDOWS}: {means}; {tf32}; {cache_line or 'no device cache'}; cli.train {secs:.1f} s, "
+                      f"{rate:.2f} iter/s ({card})", flush=True)
                 results["r5"] = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448",
                                      iters=args.r5_iters, pipeline=pipeline, runs=runs_out, jax=jax)
                 save()
@@ -347,7 +445,8 @@ def main(argv=None) -> int:
                       f"{', '.join(f'{v:.4f}' for v in b_['port_means'])} (mean {b_['port_mean']:.4f}, sample sd "
                       f"{b_['port_sd']:.4f}, JAX at {b_['z']:+.2f} sd): {'within' if b_['within'] else 'outside'} 2 sd",
                       flush=True)
-                print(f"[convergence] decision: the run_r5.sh gap is {'closed' if d['closed'] else 'open'}", flush=True)
+                print(f"[convergence] decision over these {len(runs_out)} seeds ({pipeline}): the run_r5.sh gap is "
+                      f"{'closed' if d['closed'] else 'open'}", flush=True)
             save()
     finally:
         if gen is not None and gen.poll() is None:

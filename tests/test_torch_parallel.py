@@ -8,8 +8,9 @@ JAX tool.
 The rank processes are started with the ``spawn`` method and import this
 module, so its top level imports neither jax nor the JAX package: the tests
 that compare with the JAX package import it inside. One spawn runs every
-Solver case in both ranks (``_ranks_main``) while this process computes the
-references; every join has a timeout and every process group a finite one.
+Solver case in both ranks (``_ranks_main``), started by the first comparison,
+while this process computes the references; no two spawns run at once. Every
+join has a timeout and every process group a finite one.
 """
 
 import collections
@@ -49,6 +50,9 @@ GLOBAL, H, W = 4, 64, 128
 ADAM = dict(solver_type="adam", base_lr=1e-3, lr_policy="fixed", momentum=0.9, momentum2=0.999)
 PG_TIMEOUT = timedelta(seconds=60)  # a lost rank fails the collective instead of hanging
 JOIN_TIMEOUT = 120.0
+# _ranks_main's spawn (every Solver case, the snapshot and the signal) took
+# up to 115 s of its join under the whole suite's load on an 8-core host
+RANKS_JOIN_TIMEOUT = 240.0
 # Solver cases in both ranks against one process: name -> (loss, iter_size, steps)
 CASES = {"plain": ("flownetc", 1, 2), "iter_size2": ("flownetc", 2, 1), "s1": ("flownet2-s1", 1, 1),
          "bf16": ("flownetc", 1, 1)}
@@ -217,17 +221,17 @@ def _ranks_main(group, tmp: str) -> dict:
     return out
 
 
-@pytest.fixture(scope="module", autouse=True)
-def ranks_future(request, tmp_path_factory):
-    """Both ranks' results, computed in the background from the file's first
-    test on, while the tests before the comparisons run and each comparison
-    computes its reference; not started when no selected test reads them."""
-    if not any(item.module is request.module and "ranks" in item.fixturenames for item in request.session.items):
-        yield None
-        return
+@pytest.fixture(scope="module")
+def ranks_future(tmp_path_factory):
+    """Both ranks' results, computed in the background from the first test
+    that reads them on, while each comparison computes its reference. Not
+    earlier: the tests before that one spawn two ranks of their own, and two
+    spawns at once share the host's cores, so that under the whole suite's
+    load either can miss its join limit."""
     tmp = str(tmp_path_factory.mktemp("ranks"))
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(spawn, _ranks_main, ["cpu", "cpu"], tmp, timeout=PG_TIMEOUT, join_timeout=JOIN_TIMEOUT)
+        yield pool.submit(spawn, _ranks_main, ["cpu", "cpu"], tmp, timeout=PG_TIMEOUT,
+                          join_timeout=RANKS_JOIN_TIMEOUT)
 
 
 @pytest.fixture
