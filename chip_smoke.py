@@ -40,12 +40,17 @@ card against CPU), then drives the port's paths with seeded random weights:
   each through the ``run_flownet`` CLI at FlyingChairs' 512x384 (the three
   ``.flo`` files equal), and a standalone FlowNetC ``.caffemodel`` through
   ``FlowRunner`` at 448x320 b8 against its ``.npz``;
-- training from packed records: 16 synthetic FlyingChairs pairs packed by
-  ``cli.convert_dataset``, ``cli.train`` of FlowNetC on them and of
-  DispNetC on a disparity ``.flowrec`` of FlyingThings3D-size pairs (in
-  this process, so their launches are counted), a transport batch's loss
-  against its float form's, and a step on a card-resident batch against
-  one fed from ``BatchLoader``;
+- training from packed records through ``cli.train``'s loader path
+  (``BatchLoader`` -> ``DevicePrefetcher`` -> ``Solver.solve``): 16
+  synthetic FlyingChairs pairs packed by ``cli.convert_dataset``,
+  ``cli.train`` of FlowNetC on them augmented to 448x320 b8 and of DispNetC
+  on a disparity ``.flowrec`` of FlyingThings3D-size pairs (in this
+  process, so their launches are counted), a transport batch's loss
+  against its float form's, the prefetched batches and the parameters
+  after 3 steps against the direct feed, ms a step on a card-resident
+  batch, fed directly from ``BatchLoader`` and fed through the prefetcher,
+  in turns, and the native record decoder against numpy, with µs a
+  record of each;
 - training augmentation, the paper's recipe: 512x384 FlyingChairs-layout
   pairs augmented to 448x320 b8 on the card against the CPU (the affine
   sample on K1, 2 launches a step, no K2), the noise on the card, the
@@ -78,8 +83,9 @@ card against CPU), then drives the port's paths with seeded random weights:
   ``Solver.step`` (parameters equal; 2 K1 launches a step), the refresh
   hazard (id-filled samples swapped unthrottled while the card lags the
   host by chunks, under sync debug mode "error": no torn or stale sample),
-  and ms a step resident, fed from ``BatchLoader``, and from the cache at
-  K = 1 and K = 32, with the profiler's idle shares;
+  and ms a step resident, fed from ``BatchLoader`` through the prefetcher
+  and directly, and from the cache at K = 1 and K = 32, with the
+  profiler's idle shares;
 
 and times the nets, the train steps and each kernel with CUDA events.
 
@@ -1616,31 +1622,167 @@ def train_cli_in_process(argv: list, counters: tuple) -> tuple[str, tuple]:
     return out, tuple(k.launches for k in counters)
 
 
-def record_step_times(solver, loader, dev, n: int) -> tuple[float, float]:
-    """(ms of one step on a card-resident batch by CUDA events, ms a step fed
-    from the loader by the host clock over ``n`` steps, uploads included)."""
-    resident = {k: torch.as_tensor(v, device=dev) for k, v in next(loader).items()}
-    device_ms = cuda_ms(lambda: solver.step(resident), warmup=2, runs=5)
-    solver.step(next(loader))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        solver.step(next(loader))
-    torch.cuda.synchronize()
-    return device_ms, (time.perf_counter() - t0) / n * 1e3
+FEED_ROUNDS, FEED_BLOCK = 3, 8
+
+
+def feed_times(fns: dict, strict: tuple = ()) -> dict:
+    """ms a step of each feed in ``fns`` by :func:`step_times`, taken in
+    turns: ``FEED_ROUNDS`` rounds run a block of ``FEED_BLOCK`` back-to-back
+    steps of each feed after one warm-up step, in order on even rounds and
+    reversed on odd ones; the feeds in ``strict`` under sync debug mode
+    "error"."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(FEED_ROUNDS):
+        for name in names if r % 2 == 0 else names[::-1]:
+            times[name] += step_times(fns[name], FEED_BLOCK, 1, strict=name in strict)
+    return times
+
+
+def record_feed_times(solver, make_loader, dev) -> dict:
+    """:func:`feed_times` of ``solver``'s step on a card-resident batch,
+    fed directly from a ``BatchLoader`` (``Solver.step`` uploads the host
+    arrays) and fed through ``DevicePrefetcher``; the resident and the
+    prefetch-fed steps under sync debug mode "error"."""
+    from flownet2_tpu_torch.data import DevicePrefetcher
+
+    first = iter(make_loader())
+    resident = {k: torch.as_tensor(v).to(dev) for k, v in next(first).items()}
+    first.close()
+    direct = iter(make_loader())
+    staged = iter(DevicePrefetcher(iter(make_loader()), device=dev))
+    solver.sync_bound = 1 << 30  # each block ends in one sync, none inside it
+    try:
+        return feed_times({"resident": lambda: solver.step(resident), "direct": lambda: solver.step(next(direct)),
+                           "prefetched": lambda: solver.step(next(staged))}, strict=("resident", "prefetched"))
+    finally:
+        staged.close()
+        direct.close()
+
+
+def prefetch_equality(dev, config, make_loss, start_net, host_batches: list) -> dict:
+    """The batches ``DevicePrefetcher`` delivers against the same host
+    arrays uploaded directly (max abs 0, dtypes and shapes equal), and the
+    parameters after ``Solver.solve`` over them fed through it against two
+    runs fed the host arrays directly, cuDNN deterministic: max abs 0, or
+    within the two direct runs' spread. ``make_loss()`` gives each run its
+    own objective (an augmented one keeps a noise generator)."""
+    from flownet2_tpu_torch.data import DevicePrefetcher
+    from flownet2_tpu_torch.train import Solver
+
+    batch_diff = 0.0
+    for got, src in zip(DevicePrefetcher(iter(host_batches), device=dev), host_batches):
+        for k, v in src.items():
+            ref = torch.as_tensor(v).to(dev)
+            check(got[k].dtype == ref.dtype and got[k].shape == ref.shape,
+                  f"prefetched {k} {got[k].dtype} {tuple(got[k].shape)}, direct {ref.dtype} {tuple(ref.shape)}")
+            check(torch.equal(got[k].double().isnan(), ref.double().isnan()), f"prefetched {k}: NaN pattern")
+            batch_diff = max(batch_diff, (got[k].double() - ref.double()).nan_to_num(0).abs().max().item())
+    params = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for feed in ("direct", "direct", "prefetched"):
+            solver = Solver(config, make_loss(), copy.deepcopy(start_net), device=dev, display=0)
+            batches = iter(host_batches)
+            if feed == "prefetched":
+                batches = iter(DevicePrefetcher(batches, device=dev))
+            solver.solve(batches, max_iter=len(host_batches), log=lambda m: None)
+            params.append({k: v.detach().clone() for k, v in solver.net.state_dict().items()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def max_abs(a, b):
+        return max((a[k] - b[k].to(dev)).abs().max().item() for k in a)
+
+    return dict(batch_max_abs=batch_diff, max_abs_diff=max_abs(params[2], params[0]),
+                plain_spread=max_abs(params[1], params[0]), moved=max_abs(params[0], start_net.state_dict()))
+
+
+def native_decode_times(paths: list, rounds: int = 3) -> dict:
+    """Every float-domain record of ``paths`` decoded by the native decoder
+    (``data/native.py``) and by its numpy plain version
+    (``records.decode_body``): equal (dtypes, shapes, values, NaN
+    pattern); µs a record of each, the median of ``rounds`` passes over
+    each file taken in turns (host clock)."""
+    from flownet2_tpu_torch.data import FlowRecordReader, native
+    from flownet2_tpu_torch.data.records import decode_body
+
+    native.get_lib()  # built outside the timing
+    out = {}
+    for path in paths:
+        reader = FlowRecordReader(path)
+        bodies = [reader.body(i) for i in range(len(reader))]
+        nan_px, keys = 0, set()
+        for i, body in enumerate(bodies):
+            got, ref = native.decode_record(body), decode_body(body, transport=False)
+            check(got.keys() == ref.keys(), f"{path}[{i}]: keys {sorted(got)} vs {sorted(ref)}")
+            for k in ref:
+                check(got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+                      and np.array_equal(got[k], ref[k], equal_nan=True)
+                      and np.array_equal(np.isnan(got[k]), np.isnan(ref[k])), f"{path}[{i}] {k}: native != numpy")
+            nan_px += int(np.isnan(ref["flow"]).sum())
+            keys |= set(ref)
+        times = {"native": [], "numpy": []}
+        fns = {"native": native.decode_record, "numpy": lambda b: decode_body(b, transport=False)}
+        for r in range(rounds):
+            for name in ("native", "numpy") if r % 2 == 0 else ("numpy", "native"):
+                t0 = time.perf_counter()
+                for body in bodies:
+                    fns[name](body)
+                times[name].append((time.perf_counter() - t0) / len(bodies) * 1e6)
+        h, w = ref["img0"].shape[:2]
+        out[os.path.basename(path)] = dict(records=len(bodies), size=f"{w}x{h}", keys=sorted(keys),
+                                           nan_flow_values=nan_px,
+                                           us=({k: statistics.median(v) for k, v in times.items()}))
+    return out
+
+
+def write_float_records(path: str, n: int, h: int, w: int, seed: int) -> None:
+    """n records at hxw with a tenth of the flow values NaN (invalid) and,
+    on every other record, an occlusion map."""
+    from flownet2_tpu_torch.data import FlowRecordWriter
+
+    rng = np.random.default_rng(seed)
+    with FlowRecordWriter(path) as wr:
+        for i in range(n):
+            flow = rng.uniform(-40, 40, (h, w, 2)).astype(np.float32)
+            flow[rng.random((h, w, 2)) < 0.1] = np.nan
+            occ = rng.random((h, w)) < 0.2 if i % 2 == 0 else None
+            wr.write(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                     flow, occ)
+
+
+def print_feed_times(label: str, times: dict, card: str) -> dict:
+    medians = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[times] train step {label} from .flowrec, ms a step by CUDA events between back-to-back steps, "
+          f"median of {FEED_ROUNDS} rounds x {FEED_BLOCK} steps in turns [quartiles]: "
+          + ", ".join(f"{k} {quartiles(v)}" for k, v in times.items())
+          + f"; prefetched / resident {medians['prefetched'] / medians['resident']:.4f}, direct / resident "
+          f"{medians['direct'] / medians['resident']:.4f}; resident and prefetched under sync debug mode 'error' "
+          f"({card})")
+    check(all(np.isfinite(v) and v > 0 for v in medians.values()), f"feed times {medians}")
+    return medians
 
 
 def phase_records(dev: torch.device, card: str) -> dict:
-    """Training from packed records: 16 synthetic FlyingChairs pairs at
-    512x384 packed by cli.convert_dataset into a .flowrec; cli.train of
-    FlowNetC on it (3 steps at 448x320 b8, one correlation forward and one
-    backward a step); one Solver step on the transport batch (uint8 images,
-    int16 flow) beside the same samples in float form (losses rtol 1e-6:
-    the decode is exact); a disparity .flowrec of FlyingThings3D-size
-    960x540 pairs and cli.train of DispNetC on it (3 steps at 768x384 b4,
-    one 1-D forward and one backward a step); ms a step on a card-resident
-    batch and fed from the loader."""
-    from flownet2_tpu_torch.data import BatchLoader, FlowRecordReader, FlowRecordWriter
+    """Training from packed records through ``cli.train``'s loader path
+    (``BatchLoader`` -> ``DevicePrefetcher`` -> ``Solver.solve``): 16
+    synthetic FlyingChairs pairs at 512x384 packed by cli.convert_dataset
+    into a .flowrec; cli.train of FlowNetC on it, augmented to 448x320 b8
+    (3 steps: two K1 launches, one correlation forward and one backward a
+    step); one Solver step on the transport batch (uint8 images, int16
+    flow) beside the same samples in float form (losses rtol 1e-6: the
+    decode is exact); a disparity .flowrec of FlyingThings3D-size 960x540
+    pairs and cli.train of DispNetC on it (3 steps at 768x384 b4, one 1-D
+    forward and one backward a step); each CLI's batches staged by the
+    prefetcher. Then for FlowNetC (center crops, as before the prefetcher)
+    and DispNetC: the prefetched batches and the parameters after 3 steps
+    against the direct feed (:func:`prefetch_equality`; FlowNetC
+    augmented), and ms a step resident, fed directly and fed through the
+    prefetcher, in turns (:func:`record_feed_times`); the native record
+    decoder against numpy (:func:`native_decode_times`)."""
+    from flownet2_tpu_torch.data import BatchLoader, DevicePrefetcher, FlowRecordReader, FlowRecordWriter
+    from flownet2_tpu_torch.data.augment_pipeline import make_augmented_loss, make_flownet_augmenter
     from flownet2_tpu_torch.ops.correlation import (
         correlation_1d_backward_cuda,
         correlation_1d_cuda,
@@ -1657,9 +1799,16 @@ def phase_records(dev: torch.device, card: str) -> dict:
     config = SolverConfig(solver_type="adam", lr_policy=sched["policy"], base_lr=sched["base_lr"],
                           gamma=sched["gamma"], stepvalues=sched["stepvalues"], max_iter=sched["max_iter"],
                           momentum=0.9, momentum2=0.999)
-    timings = {}
+    results, seconds, t0 = {}, {}, time.perf_counter()
+
+    def part(label):
+        nonlocal t0
+        seconds[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_records_")
     try:
+        nets = {"flownetc": _net("flownetc"), "dispnetc": _net("dispnetc")}
         chairs, rec = os.path.join(tmp, "chairs"), os.path.join(tmp, "chairs.flowrec")
         os.makedirs(chairs)
         write_chairs(chairs, 16, *CHAIRS_FRAME)
@@ -1670,18 +1819,22 @@ def phase_records(dev: torch.device, card: str) -> dict:
               f"convert_dataset exit {proc.returncode}: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
         print(f"[records] cli.convert_dataset chairs.flowrec --dataset flyingchairs: 16 pairs at "
               f"{CHAIRS_FRAME[1]}x{CHAIRS_FRAME[0]}, {os.path.getsize(rec) / 1e6:.1f} MB")
+        part("set-up")
 
-        argv = ["--model", "flownetc", "--dataset", "flowrec", "--data-root", rec, "--no-augment", "--batch", str(N),
-                "--crop", f"{H}x{W}", "--max-iter", "3", "--display", "1", "--snapshot-dir",
-                os.path.join(tmp, "snaps_c"), "--gpu", "0"]
+        argv = ["--model", "flownetc", "--dataset", "flowrec", "--data-root", rec, "--batch", str(N), "--crop",
+                f"{H}x{W}", "--max-iter", "3", "--display", "1", "--snapshot-dir", os.path.join(tmp, "snaps_c"),
+                "--gpu", "0"]
+        DevicePrefetcher.uploads = 0
         out, got = train_cli_in_process(argv, counters)
-        check("Iteration 3, loss" in out and os.path.exists(os.path.join(tmp, "snaps_c", "iter_0000003.npz")),
-              f"cli.train flownetc: {out[-1000:]}")
-        check(got == (0, 3, 3, 0, 0), f"cli.train flownetc: launches (warp, corr, corr bwd, 1-D, 1-D bwd) {got}, "
-              "expected (0, 3, 3, 0, 0)")
-        print(f"[records] cli.train --model flownetc --dataset flowrec --no-augment --batch {N} --crop {H}x{W} "
-              f"--max-iter 3 --gpu 0: launches (warp, corr, corr bwd, 1-D, 1-D bwd) {got}; "
-              f"{out.strip().splitlines()[-1]}")
+        staged = DevicePrefetcher.uploads
+        check("Iteration 3, loss" in out and "augmented" in out
+              and os.path.exists(os.path.join(tmp, "snaps_c", "iter_0000003.npz")), f"cli.train flownetc: {out[-1000:]}")
+        check(got == (6, 3, 3, 0, 0), f"cli.train flownetc: launches (K1, corr, corr bwd, 1-D, 1-D bwd) {got}, "
+              "expected (6, 3, 3, 0, 0): two K1 (the affine sample), one correlation forward and one backward a step")
+        check(staged >= 3, f"cli.train flownetc: {staged} batches staged by DevicePrefetcher, expected >= 3")
+        print(f"[records] cli.train --model flownetc --dataset flowrec --batch {N} --crop {H}x{W} (augmented from "
+              f"{CHAIRS_FRAME[1]}x{CHAIRS_FRAME[0]}) --max-iter 3 --gpu 0: launches (K1, corr, corr bwd, 1-D, "
+              f"1-D bwd) {got}; {staged} batches staged by DevicePrefetcher; {out.strip().splitlines()[-1]}")
 
         torch.backends.cudnn.deterministic = True
         losses, nbytes = {}, {}
@@ -1691,21 +1844,14 @@ def phase_records(dev: torch.device, card: str) -> dict:
             batch = next(iter(loader))
             check(batch["flow"].dtype == (np.int16 if transport else np.float32), f"flow dtype {batch['flow'].dtype}")
             nbytes[transport] = sum(v.nbytes for v in batch.values())
-            losses[transport] = Solver(config, flownet_c_loss, _net("flownetc"), device=dev).step(batch)[0].item()
+            net = copy.deepcopy(nets["flownetc"])
+            losses[transport] = Solver(config, flownet_c_loss, net, device=dev).step(batch)[0].item()
         torch.backends.cudnn.deterministic = False
         rel = abs(losses[True] - losses[False]) / abs(losses[False])
         print(f"[records] one FlowNetC step on the card, transport batch (uint8, int16; {nbytes[True] / 1e6:.1f} MB "
-              f"uploaded) vs its float form ({nbytes[False] / 1e6:.1f} MB): loss {losses[True]:.9g} vs "
-              f"{losses[False]:.9g} (rel {rel:.3g}, limit 1e-6)")
+              f"uploaded) vs its float form (native decode; {nbytes[False] / 1e6:.1f} MB): loss {losses[True]:.9g} "
+              f"vs {losses[False]:.9g} (rel {rel:.3g}, limit 1e-6)")
         check(rel <= 1e-6, f"transport vs float loss rel {rel}")
-
-        solver = Solver(config, flownet_c_loss, _net("flownetc"), device=dev)
-        loader = iter(BatchLoader(FlowRecordReader(rec, transport=True), N, crop=(H, W), shuffle_seed=SEED))
-        device_ms, fed_ms = record_step_times(solver, loader, dev, 8)
-        timings["flownetc records"] = dict(ms=device_ms, fed_ms=fed_ms)
-        print(f"[times] train step flownetc f32 {W}x{H} b{N} from .flowrec: {device_ms:.3f} ms/step on a "
-              f"card-resident batch, {fed_ms:.3f} ms/step fed from BatchLoader ({card})")
-        del solver, loader
 
         disp_rec = os.path.join(tmp, "disparity.flowrec")
         dh, dw = DISP_FRAME
@@ -1717,25 +1863,74 @@ def phase_records(dev: torch.device, card: str) -> dict:
         argv = ["--model", "dispnetc", "--dataset", "flowrec", "--data-root", disp_rec, "--no-augment", "--batch",
                 str(DISP_TRAIN_N), "--crop", f"{DISP_TRAIN_H}x{DISP_TRAIN_W}", "--max-iter", "3", "--display", "1",
                 "--snapshot-dir", os.path.join(tmp, "snaps_d"), "--gpu", "0"]
+        DevicePrefetcher.uploads = 0
         out, got = train_cli_in_process(argv, counters)
+        staged = DevicePrefetcher.uploads
         check("Iteration 3, loss" in out and os.path.exists(os.path.join(tmp, "snaps_d", "iter_0000003.npz")),
               f"cli.train dispnetc: {out[-1000:]}")
-        check(got == (0, 0, 0, 3, 3), f"cli.train dispnetc: launches (warp, corr, corr bwd, 1-D, 1-D bwd) {got}, "
+        check(got == (0, 0, 0, 3, 3), f"cli.train dispnetc: launches (K1, corr, corr bwd, 1-D, 1-D bwd) {got}, "
               "expected (0, 0, 0, 3, 3): one 1-D forward and one backward a step")
+        check(staged >= 3, f"cli.train dispnetc: {staged} batches staged by DevicePrefetcher, expected >= 3")
         print(f"[records] disparity.flowrec: 4 pairs at {dw}x{dh}, {os.path.getsize(disp_rec) / 1e6:.1f} MB; "
               f"cli.train --model dispnetc --dataset flowrec --no-augment --batch {DISP_TRAIN_N} --crop "
-              f"{DISP_TRAIN_H}x{DISP_TRAIN_W} --max-iter 3 --gpu 0: launches {got}; {out.strip().splitlines()[-1]}")
+              f"{DISP_TRAIN_H}x{DISP_TRAIN_W} --max-iter 3 --gpu 0: launches {got}; {staged} batches staged by "
+              f"DevicePrefetcher; {out.strip().splitlines()[-1]}")
+        part("cli.train and transport")
 
-        solver = Solver(config, dispnet_c_loss, _net("dispnetc"), device=dev)
-        loader = iter(BatchLoader(FlowRecordReader(disp_rec, transport=True), DISP_TRAIN_N,
-                                  crop=(DISP_TRAIN_H, DISP_TRAIN_W), shuffle_seed=SEED))
-        device_ms, fed_ms = record_step_times(solver, loader, dev, 8)
-        timings["dispnetc records"] = dict(ms=device_ms, fed_ms=fed_ms)
-        print(f"[times] train step dispnetc f32 {DISP_TRAIN_W}x{DISP_TRAIN_H} b{DISP_TRAIN_N} from .flowrec: "
-              f"{device_ms:.3f} ms/step on a card-resident batch, {fed_ms:.3f} ms/step fed from BatchLoader ({card})")
+        chairs_ds, disp_ds = FlowRecordReader(rec, transport=True), FlowRecordReader(disp_rec, transport=True)
+        equality = {
+            "flownetc augmented": (nets["flownetc"], lambda: make_augmented_loss(flownet_c_loss, H, W, seed=SEED),
+                                   BatchLoader(chairs_ds, N, shuffle_seed=SEED, num_threads=1,
+                                               transform=make_flownet_augmenter(H, W))),
+            "dispnetc": (nets["dispnetc"], lambda: dispnet_c_loss,
+                         BatchLoader(disp_ds, DISP_TRAIN_N, crop=(DISP_TRAIN_H, DISP_TRAIN_W), shuffle_seed=SEED,
+                                     num_threads=1)),
+        }
+        for label, (net, make_loss, loader) in equality.items():
+            it = iter(loader)
+            host = [next(it) for _ in range(3)]
+            it.close()
+            eq = prefetch_equality(dev, config, make_loss, net, host)
+            results[f"{label} equality"] = eq
+            print(f"[records] {label}: 3 batches through DevicePrefetcher vs the same host arrays uploaded directly: "
+                  f"max abs {eq['batch_max_abs']:.3g}; parameters after Solver.solve over them, cuDNN deterministic, "
+                  f"prefetched vs direct max abs {eq['max_abs_diff']:.3g} (two direct runs {eq['plain_spread']:.3g}; "
+                  f"moved from the start {eq['moved']:.3g})")
+            check(eq["batch_max_abs"] == 0, f"{label}: prefetched batches differ by {eq['batch_max_abs']}")
+            check(eq["moved"] > 0, f"{label}: the steps did not move the parameters")
+            check(eq["max_abs_diff"] <= eq["plain_spread"],
+                  f"{label}: prefetched vs direct parameters differ by {eq['max_abs_diff']} "
+                  f"(direct spread {eq['plain_spread']})")
+        part("equality")
+
+        feeds = {
+            f"flownetc f32 {W}x{H} b{N} (center crops)": (
+                nets["flownetc"], flownet_c_loss,
+                lambda: BatchLoader(chairs_ds, N, crop=(H, W), shuffle_seed=SEED)),
+            f"dispnetc f32 {DISP_TRAIN_W}x{DISP_TRAIN_H} b{DISP_TRAIN_N}": (
+                nets["dispnetc"], dispnet_c_loss,
+                lambda: BatchLoader(disp_ds, DISP_TRAIN_N, crop=(DISP_TRAIN_H, DISP_TRAIN_W), shuffle_seed=SEED)),
+        }
+        for label, (net, loss_fn, make_loader) in feeds.items():
+            solver = Solver(config, loss_fn, copy.deepcopy(net), device=dev, display=0)
+            results[label] = print_feed_times(label, record_feed_times(solver, make_loader, dev), card)
+            del solver
+        part("feed times")
+
+        float_rec = os.path.join(tmp, "float.flowrec")
+        write_float_records(float_rec, 16, *CHAIRS_FRAME, SEED + 50)
+        decode = native_decode_times([float_rec, disp_rec])
+        results["native decode"] = decode
+        for name, d in decode.items():
+            print(f"[records] {name}: {d['records']} float-domain records at {d['size']} ({', '.join(d['keys'])}; "
+                  f"{d['nan_flow_values']} NaN flow values) decoded natively and by numpy: equal, the same NaN "
+                  f"pattern; us a record (host clock, median of 3 passes in turns): native {d['us']['native']:.1f}, "
+                  f"numpy {d['us']['numpy']:.1f} ({card})")
+        part("native decode")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return timings
+    print(f"[records] parts (s, host clock): {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return results
 
 
 def affine_theta(mats: torch.Tensor, src_h: int, src_w: int, out_h: int, out_w: int) -> torch.Tensor:
@@ -2536,17 +2731,25 @@ def busy_ms(prof) -> float:
     return total / 1e3
 
 
-def step_times(fn, calls: int, warmup: int) -> list[float]:
+def step_times(fn, calls: int, warmup: int, strict: bool = False) -> list[float]:
     """ms of each of ``calls`` back-to-back calls of ``fn`` by CUDA events
-    recorded between them (nothing waits in between), after ``warmup``."""
+    recorded between them (nothing waits in between), after ``warmup``.
+    ``strict``: the timed calls run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a call that waits for
+    the card raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
-    events[0].record()
-    for e in events[1:]:
-        fn()
-        e.record()
+    if strict:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        events[0].record()
+        for e in events[1:]:
+            fn()
+            e.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     events[-1].synchronize()
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
 
@@ -2790,9 +2993,11 @@ def cache_hazard(rig: CacheRig, steps: int = 64, k: int = 8) -> dict:
 def cache_times(rig: CacheRig, card: str) -> dict:
     """ms a step by CUDA events, median of 32 back-to-back steps after
     warm-ups: the resident batch, the step fed from ``BatchLoader`` over the
-    .flowrec, the cache at K = 1 and at K = 32 (default throttles); the idle
-    share by the profiler at K = 1 and K = 32."""
-    from flownet2_tpu_torch.data import BatchLoader
+    .flowrec through ``DevicePrefetcher`` (cli.train's loader path) and
+    directly, the cache at K = 1 and at K = 32 (default throttles); ms a
+    batch of the loader alone and through the prefetcher alone (no step,
+    host clock); the idle share by the profiler at K = 1 and K = 32."""
+    from flownet2_tpu_torch.data import BatchLoader, DevicePrefetcher
     from flownet2_tpu_torch.data.augment_pipeline import make_flownet_augmenter
     from flownet2_tpu_torch.data.device_cache import (
         CacheBatches,
@@ -2805,12 +3010,33 @@ def cache_times(rig: CacheRig, card: str) -> dict:
 
     dev = rig.dev
     timed = {}
-    loader = iter(BatchLoader(rig.dataset, N, shuffle_seed=SEED, transform=make_flownet_augmenter(H, W)))
+
+    def loader():
+        return iter(BatchLoader(rig.dataset, N, shuffle_seed=SEED, transform=make_flownet_augmenter(H, W)))
+
+    staged, direct = iter(DevicePrefetcher(loader(), device=dev)), loader()
     fed = rig.solver(rig.aug_loss)
-    timed["BatchLoader-fed"] = step_times(lambda: fed.step(next(loader)), CACHE_TIMED_STEPS, 6)
-    resident_batch = {k: torch.as_tensor(v, device=dev) for k, v in next(loader).items()}
+    timed["BatchLoader-fed"] = step_times(lambda: fed.step(next(staged)), CACHE_TIMED_STEPS, 6)
+    timed["BatchLoader direct"] = step_times(lambda: fed.step(next(direct)), CACHE_TIMED_STEPS, 6)
+    resident_batch = {k: torch.as_tensor(v, device=dev) for k, v in next(direct).items()}
     timed["resident batch"] = step_times(lambda: fed.step(resident_batch), CACHE_TIMED_STEPS, 4)
-    del fed, loader, resident_batch
+    staged.close()
+    direct.close()
+    del fed, resident_batch
+    # the feeds alone, no step: how fast the loader makes batches, and the
+    # prefetcher stages them on the card
+    alone = {}
+    for label, it in (("BatchLoader alone", loader()), ("through DevicePrefetcher alone",
+                                                       iter(DevicePrefetcher(loader(), device=dev)))):
+        for _ in range(6):
+            next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CACHE_TIMED_STEPS):
+            next(it)
+        torch.cuda.synchronize()
+        alone[label] = (time.perf_counter() - t0) / CACHE_TIMED_STEPS * 1e3
+        it.close()
 
     cache = DeviceSampleCache(cycle_dataset(rig.dataset, seed=SEED), slab_samples=CACHE_SLAB, n_slabs=CACHE_SLABS,
                               device=dev)
@@ -2833,11 +3059,13 @@ def cache_times(rig: CacheRig, card: str) -> dict:
     print(f"[times] train step flownets f32 {W}x{H} b{N} augmented from {sw}x{sh} (.flowrec, {CACHE_FILE_SAMPLES} "
           f"samples), ms a step by CUDA events, median of {CACHE_TIMED_STEPS} back-to-back steps [quartiles]: "
           + ", ".join(f"{k} {quartiles(v)}" for k, v in timed.items())
-          + f" (K=32: 2 chunks of 32 steps, each / 32); device idle share by the profiler: K=1 {idle['K=1']:.3f} "
+          + f" (K=32: 2 chunks of 32 steps, each / 32); ms a batch with no step, host clock over "
+          f"{CACHE_TIMED_STEPS}: " + ", ".join(f"{k} {v:.3f}" for k, v in alone.items())
+          + f"; device idle share by the profiler: K=1 {idle['K=1']:.3f} "
           f"over {CACHE_TIMED_STEPS // 2} steps, K=32 {idle['K=32']:.3f} over one chunk; the timed cache "
           f"{CACHE_SLABS}x{CACHE_SLAB} at default throttles swapped {stats['slabs_swapped']} slabs ({card})")
     check(all(np.isfinite(v) and v > 0 for v in medians.values()), f"step times {medians}")
-    return dict(medians=medians, idle=idle, cache_stats=stats)
+    return dict(medians=medians, alone_ms=alone, idle=idle, cache_stats=stats)
 
 
 def phase_cache(dev: torch.device, card: str, kernels: dict) -> dict:

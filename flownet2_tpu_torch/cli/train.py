@@ -59,7 +59,11 @@ Flag-compatible with flownet2_tpu/cli/train.py where the port has the piece:
   coefficients uploaded in one copy (``Solver.solve_cached``; display,
   test and snapshots at chunk boundaries); 0 means 32 with the cache, else
   1. The run ends with ``Device cache: S slab refreshes, N samples
-  uploaded (M MB)``.
+  uploaded (M MB)``;
+- without the cache the loader's batches reach the card through
+  ``data.pipeline.DevicePrefetcher``: a thread packs each batch into pinned
+  memory and copies it on a stream of its own, so a step never waits for
+  its upload (each rank of a group stages its own rows to its own card).
 
 Refused with a message: ``--device-cache`` with several cards (the cache
 feeds one), with ``--write-augmented``, with ``--iter-size`` above 1, and
@@ -255,7 +259,7 @@ def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> 
     a data-parallel ``group`` (``parallel.mesh.Group``)."""
     from flownet2_tpu_torch.checkpoint import init_params, load_into
     from flownet2_tpu_torch.cli.run_flownet import load_weights
-    from flownet2_tpu_torch.data import BatchLoader
+    from flownet2_tpu_torch.data import BatchLoader, DevicePrefetcher
     from flownet2_tpu_torch.data.augment_pipeline import (
         BATCH_MEAN_KEYS,
         MEAN_KEYS,
@@ -347,7 +351,7 @@ def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> 
         for m, key in zip(means, BATCH_MEAN_KEYS):
             m.update(aux[key].cpu().numpy())
         if last_batch and args.display and it % args.display == 0:
-            batch = last_batch["batch"]
+            batch = {k: v.cpu().numpy() for k, v in last_batch["batch"].items()}
             if group is not None:  # the global batch, on rank 0
                 parts = gather_to_main(batch, group)
                 if parts is None:
@@ -364,14 +368,18 @@ def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> 
         f"{max_iter} iterations, crop {crop_h}x{crop_w}, {batch_text} x iter_size {args.iter_size}"
         + (", augmented" if augment else ", center crops")
         + (f", device cache {cache.stats()['capacity_samples']} samples, {steps} steps a dispatch" if cache else ""))
+    # the loader's batches are staged on the card ahead of their steps
+    batches = iter(loader) if cache is not None else iter(DevicePrefetcher(iter(loader), device=solver.device))
     try:
         if cache is not None and steps > 1:
-            solver.solve_cached(iter(loader), max_iter=max_iter)
+            solver.solve_cached(batches, max_iter=max_iter)
         else:
-            solver.solve(iter(loader), max_iter=max_iter, batch_hook=batch_hook, on_step=on_step)
+            solver.solve(batches, max_iter=max_iter, batch_hook=batch_hook, on_step=on_step)
     finally:
         if cache is not None:
             cache.stop()
+        else:
+            batches.close()  # stops the staging thread
     if cache is not None:
         st = cache.stats()
         log(f"Device cache: {st['slabs_swapped']} slab refreshes, {st['samples_uploaded']} samples uploaded "

@@ -1,8 +1,10 @@
-"""Prefetching batch loader (flownet2_tpu/data/pipeline.py): the
-DataReader/BlockingQueue analogue of the reference.
+"""Prefetching batch loader and device staging (flownet2_tpu/data/pipeline.py):
+the DataReader/BlockingQueue analogue of the reference.
 
 Worker threads decode samples and stack them into host batches; a bounded
 queue holds the ready batches, so host decoding overlaps the device step.
+:class:`DevicePrefetcher` then stages each batch on the card from a thread
+of its own, so the training loop never waits for an upload.
 The sample order (with the datasets' block-wise permutation) and the
 workers' random generators are seeded as in the JAX loader, so the two give
 the same batches for the same seed. Batches keep the items' dtypes: packed
@@ -21,6 +23,171 @@ import threading
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
+
+
+def pack_layout(arrays: dict) -> tuple[dict, int]:
+    """Byte offsets of ``arrays`` laid end to end in one block, each 8-byte
+    aligned so that it can be viewed in its type, and the block's size."""
+    offsets, total = {}, 0
+    for k, a in arrays.items():
+        total = -(-total // 8) * 8
+        offsets[k] = total
+        total += a.nbytes
+    return offsets, total
+
+
+def pack_into(block: torch.Tensor, arrays: dict, offsets: dict) -> None:
+    """Copy ``arrays`` into the uint8 host tensor ``block`` at ``offsets``."""
+    raw = block.numpy()
+    for k, a in arrays.items():
+        raw[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
+
+
+def unpack_views(block: torch.Tensor, arrays: dict, offsets: dict) -> dict:
+    """Views of the uint8 tensor ``block`` (any device) in the types and
+    shapes of ``arrays`` packed at ``offsets``."""
+    return {
+        k: block[offsets[k]:offsets[k] + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).view(a.shape)
+        for k, a in arrays.items()
+    }
+
+
+class _Staged:
+    """A batch of card tensors whose copy was queued on the staging stream,
+    and the event recorded after it."""
+
+    def __init__(self, tensors: dict, event: torch.cuda.Event):
+        self.tensors = tensors
+        self.event = event
+
+    def take(self, device: torch.device) -> dict:
+        """The tensors, ready for the current stream: it waits for the copy
+        on the card (the host does not), and each tensor is marked used by
+        it, so the caching allocator does not hand its memory to the
+        staging stream again before the work queued here has retired."""
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(self.event)
+        for t in self.tensors.values():
+            t.record_stream(stream)
+        return self.tensors
+
+
+class _CardStager:
+    """Packs a batch's arrays into one pinned host block of a ring of
+    ``slots`` and copies it to ``device`` on a stream of its own. A block is
+    refilled only after its last copy's event has completed; the thread
+    that stages waits for it, never the consumer."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.ring: list = [(None, None)] * slots  # (pinned block, event of its last copy)
+        self.next = 0
+
+    def __call__(self, batch: dict) -> _Staged:
+        arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+        offsets, total = pack_layout(arrays)
+        i, self.next = self.next, (self.next + 1) % len(self.ring)
+        block, event = self.ring[i]
+        if event is not None:
+            event.synchronize()
+        if block is None or block.numel() < total:
+            block = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        pack_into(block, arrays, offsets)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            on_card = torch.empty(total, dtype=torch.uint8, device=self.device)
+            on_card.copy_(block[:total], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.ring[i] = (block, event)
+        DevicePrefetcher.uploads += 1
+        return _Staged(unpack_views(on_card, arrays, offsets), event)
+
+
+class DevicePrefetcher:
+    """Host-to-device staging: a background thread uploads batches ahead of
+    consumption, so the copy overlaps the device step (the reference's
+    ``async_gpu_push`` on SyncedMemory with its prefetch threads,
+    syncedmem.hpp:45-83, base_data_layer.hpp:74-79).
+
+    Wraps any iterator of dicts of arrays and yields the same dicts with
+    every array a tensor on ``device``, in order. ``depth`` bounds the
+    staged batches (card memory held: about ``depth`` + 1 batches). Upload
+    stalls land in the staging thread, never in the training loop:
+
+    - to a card, the thread packs each batch into one pinned host block of
+      a ring of ``depth`` + 1, copies it with ``non_blocking=True`` on a
+      CUDA stream of its own and records an event; the consumer's current
+      stream waits for that event on the card, and every tensor is marked
+      used by that stream (``record_stream``);
+    - ``device="cpu"`` yields ``torch.from_numpy`` tensors of the arrays.
+
+    ``device=None`` is the current CUDA card; without one it raises (it
+    never falls back to the CPU). An error in the source or in an upload is
+    raised at the consumer. Closing the generator stops the thread and
+    drains the queue. ``uploads`` counts the batches staged to a card, over
+    every instance."""
+
+    uploads = 0
+
+    def __init__(self, batches, *, depth: int = 2, device=None):
+        if depth < 1:
+            raise ValueError(f"DevicePrefetcher: depth must be >= 1, got {depth}")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("DevicePrefetcher: no CUDA device available; name a device "
+                                   "(device='cpu' stages on the host)")
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.batches = batches
+        self.depth = depth
+        self.device = torch.device(device)
+
+    def _host(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in batch.items()}
+
+    def __iter__(self) -> Iterator[dict]:
+        cuda = self.device.type == "cuda"
+        stage = _CardStager(self.device, self.depth + 1) if cuda else self._host
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for batch in self.batches:
+                    if stop.is_set() or not put(stage(batch)):
+                        return
+            except Exception as e:  # a decode or upload error, raised at the consumer
+                put(e)
+                return
+            put(None)
+
+        thread = threading.Thread(target=worker, name="DevicePrefetcher", daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item.take(self.device) if cuda else item
+        finally:
+            stop.set()
+            while not q.empty():  # drain, so that a put in flight returns
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
 
 
 def center_crop(arr, crop: Optional[tuple[int, int]]):

@@ -14,7 +14,9 @@ Container: a flat ``.flowrec`` file of length-prefixed records plus a
 LMDB's B-tree played, without the dependency). Header per record:
 ``H (u32) | W (u32) | flags (u32)`` with flag bit 0 = has-occlusion and
 bit 1 = a 1-channel (disparity) payload. Files are byte-for-byte those of
-the JAX package's writer; items decode with numpy alone.
+the JAX package's writer. Transport items are numpy views of the record;
+float items decode through the native decoder (``data/native.py``), as the
+JAX reader's do, and :func:`decode_body` is its numpy plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from flownet2_tpu_torch.core.codec import (
     encode_flow_int16,
     encode_occlusion_bits,
 )
+from flownet2_tpu_torch.data import native
 
 MAGIC = b"FLR1"
 _FLAG_OCC = 1
@@ -87,6 +90,36 @@ class FlowRecordWriter:
         self.close()
 
 
+def decode_body(body: bytes, *, transport: bool) -> dict:
+    """A record body decoded with numpy: in the transport domain, uint8
+    images, int16 flow and uint8 occlusion as views of ``body`` (no copy);
+    else float32 arrays, flow with NaN where invalid, the plain version of
+    :func:`~flownet2_tpu_torch.data.native.decode_record`."""
+    h, w, flags = struct.unpack_from("<III", body, 0)
+    off = 12
+    n_img = h * w * 3
+    img0 = np.frombuffer(body, np.uint8, n_img, off).reshape(h, w, 3)
+    off += n_img
+    img1 = np.frombuffer(body, np.uint8, n_img, off).reshape(h, w, 3)
+    off += n_img
+    n_flow_ch = 1 if flags & _FLAG_DISPARITY else 2
+    flow_i16 = np.frombuffer(body, np.int16, h * w * n_flow_ch, off).reshape(h, w, n_flow_ch)
+    off += h * w * n_flow_ch * 2
+    if transport:
+        out = {"img0": img0, "img1": img1, "flow": flow_i16}
+    else:
+        out = {
+            "img0": img0.astype(np.float32),
+            "img1": img1.astype(np.float32),
+            "flow": decode_flow_int16(flow_i16),
+        }
+    if flags & _FLAG_OCC:
+        n_occ = (h * w + 7) // 8
+        occ = decode_occlusion_bits(np.frombuffer(body, np.uint8, n_occ, off), (h, w))
+        out["occ"] = occ.astype(np.uint8 if transport else np.float32)[..., None]
+    return out
+
+
 class FlowRecordReader:
     """Random-access reader; an item loads to the same dict shape as
     FlowPairDataset items (float32 HWC arrays, flow with NaN invalids).
@@ -113,7 +146,8 @@ class FlowRecordReader:
     def __len__(self) -> int:
         return len(self._offsets)
 
-    def __getitem__(self, i: int) -> dict:
+    def body(self, i: int) -> bytes:
+        """Record i's raw body: header and payload."""
         # os.pread: ATOMIC positioned read. BatchLoader runs multiple worker
         # threads over one reader; a shared-handle seek()+read() interleaves
         # across threads and yields torn records (observed: shape errors —
@@ -124,34 +158,16 @@ class FlowRecordReader:
         fd = self._f.fileno()
         off = int(self._offsets[i])
         (length,) = struct.unpack("<Q", os.pread(fd, 8, off))
-        body = os.pread(fd, length, off + 8)
-        h, w, flags = struct.unpack_from("<III", body, 0)
-        off = 12
-        n_img = h * w * 3
-        img0 = np.frombuffer(body, np.uint8, n_img, off).reshape(h, w, 3)
-        off += n_img
-        img1 = np.frombuffer(body, np.uint8, n_img, off).reshape(h, w, 3)
-        off += n_img
-        n_flow_ch = 1 if flags & _FLAG_DISPARITY else 2
-        flow_i16 = np.frombuffer(body, np.int16, h * w * n_flow_ch, off).reshape(
-            h, w, n_flow_ch
-        )
-        off += h * w * n_flow_ch * 2
+        return os.pread(fd, length, off + 8)
+
+    def __getitem__(self, i: int) -> dict:
+        body = self.body(i)
         if self.transport:
-            out = {"img0": img0, "img1": img1, "flow": flow_i16}
-        else:
-            out = {
-                "img0": img0.astype(np.float32),
-                "img1": img1.astype(np.float32),
-                "flow": decode_flow_int16(flow_i16),
-            }
-        if flags & _FLAG_OCC:
-            n_occ = (h * w + 7) // 8
-            occ = decode_occlusion_bits(
-                np.frombuffer(body, np.uint8, n_occ, off), (h, w)
-            )
-            out["occ"] = occ.astype(np.uint8 if self.transport else np.float32)[..., None]
-        return out
+            return decode_body(body, transport=True)
+        try:  # float domain: the native decoder (native/flowdata.cc)
+            return native.decode_record(body)
+        except ValueError as e:
+            raise ValueError(f"{self.path}[{i}]: {e}") from None
 
     def close(self):
         self._f.close()

@@ -50,6 +50,7 @@ from flownet2_tpu_torch.checkpoint import (
     save_params,
     state_dict_from_params,
 )
+from flownet2_tpu_torch.data.pipeline import pack_into, pack_layout, unpack_views
 from flownet2_tpu_torch.parallel.data_parallel import allreduce_gradients, allreduce_stats, broadcast_module
 from flownet2_tpu_torch.parallel.mesh import Group
 from flownet2_tpu_torch.train.solvers import CaffeSolver, SolverConfig, make_solver
@@ -117,20 +118,10 @@ def upload_bank(bank: dict, device) -> dict:
     arrays = {k: np.ascontiguousarray(v) for k, v in bank.items()}
     if device.type != "cuda":
         return {k: torch.from_numpy(a) for k, a in arrays.items()}
-    offsets, total = {}, 0
-    for k, a in arrays.items():
-        total = -(-total // 8) * 8  # each array 8-byte aligned, so that it can be viewed in its type
-        offsets[k] = total
-        total += a.nbytes
+    offsets, total = pack_layout(arrays)
     host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-    raw = host.numpy()
-    for k, a in arrays.items():
-        raw[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
-    on_card = host.to(device, non_blocking=True)
-    return {
-        k: on_card[offsets[k]:offsets[k] + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
-        for k, a in arrays.items()
-    }
+    pack_into(host, arrays, offsets)
+    return unpack_views(host.to(device, non_blocking=True), arrays, offsets)
 
 
 def make_multistep_train_step(

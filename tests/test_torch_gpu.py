@@ -1314,3 +1314,53 @@ def test_dp_two_gloo_ranks_on_one_card_match_one_process(cuda, no_tf32):
     whole, median = _grad_errors({k: torch.from_numpy(got_params[k] - start[k]) for k in start},
                                  {k: torch.from_numpy(halves[k] - start[k]) for k in start})
     assert whole <= 1e-3 and median <= 1e-3, ("updates", whole, median)
+
+
+def _prefetch_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"img0": rng.integers(0, 256, (4, 96, 128, 3), dtype=np.uint8),
+             "flow": rng.integers(-32768, 32767, (4, 96, 128, 2), dtype=np.int16),
+             "aug_mat0": rng.normal(size=(4, 6)).astype(np.float32), "label": np.arange(4, dtype=np.int32)}
+            for _ in range(n)]
+
+
+def test_prefetcher_on_card_equals_the_direct_upload_without_a_host_sync(cuda):
+    """Batches staged through pinned blocks on the prefetcher's stream equal
+    ``torch.as_tensor(v).to(card)`` (max abs 0), and taking them and
+    working on them waits for nothing on the host (sync debug mode
+    "error"); the staging thread ends when the generator is closed."""
+    import threading
+
+    from flownet2_tpu_torch.data import DevicePrefetcher
+
+    batches = _prefetch_batches(8)
+    DevicePrefetcher.uploads = 0
+    gen = iter(DevicePrefetcher(iter(batches), depth=2, device=cuda))
+    first = next(gen)
+    got = [first]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in gen:
+            b["img0"].float().mul_(2)  # queued work on the current stream
+            got.append(b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert DevicePrefetcher.uploads == 8 and len(got) == 8
+    for b, src in zip(got, batches):
+        for k, v in src.items():
+            ref = torch.as_tensor(v).to(cuda)
+            assert b[k].device.type == "cuda" and b[k].dtype == ref.dtype and b[k].shape == ref.shape
+            assert torch.equal(b[k], ref)
+    gen.close()
+    for t in [t for t in threading.enumerate() if t.name == "DevicePrefetcher"]:
+        t.join(5)
+        assert not t.is_alive()
+
+
+def test_prefetcher_with_no_device_named_stages_on_the_current_card(cuda):
+    from flownet2_tpu_torch.data import DevicePrefetcher
+
+    p = DevicePrefetcher(iter(_prefetch_batches(1)))
+    assert p.device == torch.device("cuda", torch.cuda.current_device())
+    (b,) = list(p)
+    assert b["img0"].is_cuda
