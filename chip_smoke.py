@@ -53,8 +53,9 @@ card against CPU), then drives the port's paths with seeded random weights:
   record of each;
 - training augmentation, the paper's recipe: 512x384 FlyingChairs-layout
   pairs augmented to 448x320 b8 on the card against the CPU (the affine
-  sample on K1, 2 launches a step, no K2), the noise on the card, the
-  augmentation, K1 at its canvas beside ``F.affine_grid`` +
+  sample on K1, 2 launches a step, no K2), the bfloat16 sample of the
+  JAX package's accelerator route on K1 against the CPU's, the noise on
+  the card, the augmentation, K1 at its canvas beside ``F.affine_grid`` +
   ``F.grid_sample`` and the augmented FlowNetC step (f32, bf16) timed
   beside the unaugmented one, and ``cli.train`` augmented from a transport
   ``.flowrec`` (``--recompute-mean``, ``--write-augmented``) and with the
@@ -1949,11 +1950,59 @@ def launch_counts(counters) -> tuple:
     return tuple(k.launches for k in counters)
 
 
+def bf16_sample_check(batch: dict, dev: torch.device) -> None:
+    """The JAX package's accelerator sample (``sample_dtype=torch.bfloat16``:
+    bf16 images, the float32 position flow) of a batch's two frames on the
+    card against the plain version's on the CPU. Both weight the taps in
+    float32 and round the output to bfloat16 once, so they differ at most by
+    one bfloat16 ulp below 1.0 (2^-8 on the [0, 1] scale) where the sums'
+    order tips a rounding. K1's counter must count 2 launches, from 2 calls
+    of ``flow_warp`` with a bfloat16 image and a float32 flow on the card."""
+    from flownet2_tpu_torch.ops import augment as augment_ops
+    from flownet2_tpu_torch.ops.warp import flow_warp_cuda
+
+    warp, seen = augment_ops.flow_warp, []
+
+    def spy(image, flow, *args):
+        seen.append((image.dtype, flow.dtype, image.device.type))
+        return warp(image, flow, *args)
+
+    def sample(device):
+        return [augment_ops.apply_spatial_transform(
+            torch.as_tensor(batch[f"img{i}"]).to(device).permute(0, 3, 1, 2).float() / 255.0,
+            torch.as_tensor(batch[f"aug_mat{i}"]).to(device), H, W, sample_dtype=torch.bfloat16) for i in (0, 1)]
+
+    t0 = time.perf_counter()
+    flow_warp_cuda.launches = 0
+    augment_ops.flow_warp = spy
+    try:
+        with torch.no_grad():
+            got = sample(dev)
+        torch.cuda.synchronize()
+    finally:
+        augment_ops.flow_warp = warp
+    launches = flow_warp_cuda.launches
+    ref = sample("cpu")
+    err = max((g.cpu() - r).abs().max().item() for g, r in zip(got, ref))
+    differ = sum(int((g.cpu() != r).sum()) for g, r in zip(got, ref)) / sum(r.numel() for r in ref)
+    print(f"[augment] bf16 sample (sample_dtype=torch.bfloat16), {N} pairs {CHAIRS_FRAME[1]}x{CHAIRS_FRAME[0]} -> "
+          f"{W}x{H}, card vs the plain version on the CPU: max abs err {err:.3g} on [0, 1] (limit 2^-8, one bf16 ulp "
+          f"below 1.0), {differ:.3g} of the values differ; K1 launches {launches} from flow_warp calls with (image, "
+          f"flow, device) {seen} ({time.perf_counter() - t0:.2f} s)")
+    check(all(g.dtype == torch.float32 and g.shape == (N, 3, H, W) and torch.isfinite(g).all() for g in got),
+          "bf16 sample: float32 finite crops")
+    check(err <= 2.0 ** -8, f"bf16 sample, card vs CPU: {err}")
+    check(launches == 2 and seen == [(torch.bfloat16, torch.float32, "cuda")] * 2,
+          f"bf16 sample: K1 launches {launches} from flow_warp calls {seen}, expected 2 x (bfloat16, float32, cuda)")
+
+
 def phase_augment(dev: torch.device, card: str, kernels: dict) -> dict:
     """The paper's augmented recipe: 16 synthetic 512x384 FlyingChairs-layout
     pairs to 448x320 b8. The augmented batch (noise 0) on the card against
     the port on the CPU (images 1e-3 on the 0-255 scale, flow 1e-4 px and
-    the same NaN pattern); the augmented FlowNetC step's launches, counted
+    the same NaN pattern); the batch's bfloat16 sample (the JAX package's
+    accelerator route) on K1 against the CPU's, within one bf16 ulp
+    (``bf16_sample_check``); the augmented FlowNetC step's launches, counted
     from 0 just before it (2 of K1, the affine sample of each frame; 0 of
     K2: the augmentation records no backward); the noise's statistics and
     its generator on the card; black, eigen and shadow on the card against
@@ -2035,6 +2084,7 @@ def phase_augment(dev: torch.device, card: str, kernels: dict) -> dict:
         check(flow_err <= 1e-4, f"augmented flow, card vs CPU: {flow_err} px")
         check(direct == (2, 0, 0, 0), f"augmentation launches {direct}, expected (2, 0, 0, 0)")
         del got, ref
+        bf16_sample_check(quiet, dev)
 
         solver = Solver(config, make_augmented_loss(flownet_c_loss, H, W, seed=SEED), _net("flownetc"), device=dev)
         for k in counters:

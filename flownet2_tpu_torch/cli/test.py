@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 
 def score(runner, batches: Iterable[dict], *, iterations: int = 0, log: Callable[[str], None] = print) -> list[float]:
@@ -70,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, net_hook: Optional[Callable] = None) -> int:
+    """The CLI. ``net_hook``, for scripts (no flag sets it): called with the
+    runner's net before scoring (a diagnostic arm such as
+    ``tools/diag/tpu_arith.route_convs``)."""
     args = build_parser().parse_args(argv)
 
     from flownet2_tpu_torch.cli.run_flownet import device_from_args, load_weights, resolve_model_name
@@ -80,6 +83,8 @@ def main(argv=None) -> int:
     model = resolve_model_name(args.model)
     device = device_from_args(args)
     runner = FlowRunner(model, load_weights(args.weights, model), device=device, dtype=args.dtype)
+    if net_hook is not None:
+        net_hook(runner.net)
     dataset = open_dataset(args.dataset, args.data_root)
     # one worker thread: the batches come in file order, as "Batch i" says
     loader = BatchLoader(dataset, args.batch, shuffle_seed=None, epochs=1, num_threads=1)

@@ -80,7 +80,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -206,10 +206,20 @@ def _devices(args) -> list[str]:
         raise SystemExit(str(e)) from None
 
 
-def main(argv=None, *, cache_options: Optional[dict] = None) -> int:
-    """The CLI. ``cache_options``: keyword arguments for the device cache's
-    constructor beyond the flags (its throttles ``min_echo`` and
-    ``link_duty``), for scripts; no flag sets them."""
+def main(
+    argv=None,
+    *,
+    cache_options: Optional[dict] = None,
+    sample_dtype=None,
+    net_hook: Optional[Callable] = None,
+) -> int:
+    """The CLI. For scripts, beyond the flags (no flag sets them), on one
+    device: ``cache_options``, keyword arguments for the device cache's
+    constructor (its throttles ``min_echo`` and ``link_duty``);
+    ``sample_dtype``, the augmentation's affine sample dtype
+    (``make_augmented_loss``; None is its float32 default); ``net_hook``,
+    called with the net once its weights are in, before training (a
+    diagnostic arm such as ``tools/diag/tpu_arith.route_convs``)."""
     args = build_parser().parse_args(argv)
     _refuse_unsupported(args)
     _loss_key(args)
@@ -217,7 +227,9 @@ def main(argv=None, *, cache_options: Optional[dict] = None) -> int:
     if args.device_cache and len(devices) > 1:
         raise SystemExit("--device-cache is single-device: the cache feeds one card")
     if len(devices) == 1:
-        return train(args, devices[0], cache_options=cache_options)
+        return train(args, devices[0], cache_options=cache_options, sample_dtype=sample_dtype, net_hook=net_hook)
+    if sample_dtype is not None or net_hook is not None:
+        raise SystemExit("sample_dtype and net_hook are single-device")
     return train_ranks(args, devices)
 
 
@@ -254,9 +266,11 @@ def _train_rank(group, args) -> int:
     return train(args, group.device, group=group)
 
 
-def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> int:
+def train(args, device, *, group=None, cache_options: Optional[dict] = None, sample_dtype=None,
+          net_hook: Optional[Callable] = None) -> int:
     """The training run on ``device``: alone, or as this process's rank of
-    a data-parallel ``group`` (``parallel.mesh.Group``)."""
+    a data-parallel ``group`` (``parallel.mesh.Group``). ``sample_dtype``
+    and ``net_hook``: as in :func:`main`."""
     from flownet2_tpu_torch.checkpoint import init_params, load_into
     from flownet2_tpu_torch.cli.run_flownet import load_weights
     from flownet2_tpu_torch.data import BatchLoader, DevicePrefetcher
@@ -298,7 +312,8 @@ def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> 
     loss_fn, means, transform = LOSSES[loss_key], [], None
     if augment:
         loss_fn = make_augmented_loss(loss_fn, crop_h, crop_w, seed=args.seed, mean_window=args.recompute_mean,
-                                      mean_per_pixel=args.mean_per_pixel, rank=rank)
+                                      mean_per_pixel=args.mean_per_pixel, rank=rank,
+                                      sample_dtype=sample_dtype or torch.float32)
         transform = make_flownet_augmenter(crop_h, crop_w)
         if args.recompute_mean > 0:
             means = [MeanRecompute(crop_h, crop_w, 3, window=args.recompute_mean, per_pixel=args.mean_per_pixel)
@@ -310,6 +325,8 @@ def train(args, device, *, group=None, cache_options: Optional[dict] = None) -> 
     with torch.device("meta"):
         net = NETS[args.model]()
     load_into(net, init_params(args.model, seed=args.seed))
+    if net_hook is not None:
+        net_hook(net)
     solver = Solver(
         config, loss_fn, net, device=device, trainable=trainable_module(net, loss_key),
         snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval, display=args.display, group=group,

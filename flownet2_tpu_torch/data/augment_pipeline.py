@@ -163,6 +163,7 @@ def apply_augmentation_device(
     *,
     mean_window: int = 0,
     mean_per_pixel: bool = False,
+    sample_dtype: torch.dtype = torch.float32,
 ) -> dict:
     """The device side: consumes the aug_* arrays of a batch of NHWC
     tensors (images uint8 or float in 0-255, flow float32 or int16
@@ -178,14 +179,21 @@ def apply_augmentation_device(
     running mean updates and is subtracted, and each frame's batch mean
     comes back as ``aug_batch_mean0/1`` for the host mirror; a ``mean_rgb``
     entry subtracts a fixed per-channel mean instead. Both in [0, 1].
+
+    ``sample_dtype``: the images' affine sample in float32 (the default) or
+    in bfloat16, the JAX package's accelerator route
+    (:func:`~flownet2_tpu_torch.ops.augment.apply_spatial_transform`); the
+    flow transform, chromatic and noise stay float32.
     """
     from flownet2_tpu_torch.data.mean import recompute_mean_and_subtract, subtract_fixed_mean
 
     def nchw_unit(x):
         return x.permute(0, 3, 1, 2).float() / 255.0
 
-    img0 = apply_spatial_transform(nchw_unit(batch["img0"]), batch["aug_mat0"], crop_h, crop_w)
-    img1 = apply_spatial_transform(nchw_unit(batch["img1"]), batch["aug_mat1"], crop_h, crop_w)
+    img0 = apply_spatial_transform(nchw_unit(batch["img0"]), batch["aug_mat0"], crop_h, crop_w,
+                                   sample_dtype=sample_dtype)
+    img1 = apply_spatial_transform(nchw_unit(batch["img1"]), batch["aug_mat1"], crop_h, crop_w,
+                                   sample_dtype=sample_dtype)
     flow = apply_flow_augmentation(
         flow_as_f32(batch["flow"]).permute(0, 3, 1, 2), batch["aug_mat0"], batch["aug_inv_mat1"], crop_h, crop_w
     )
@@ -266,6 +274,7 @@ def make_augmented_loss(
     mean_window: int = 0,
     mean_per_pixel: bool = False,
     rank: int = 0,
+    sample_dtype: torch.dtype = torch.float32,
 ) -> Callable:
     """Wrap an objective ``base_loss(net, batch)`` so that it augments the
     batch first, when the batch carries the aug_* arrays (else it passes
@@ -283,7 +292,8 @@ def make_augmented_loss(
     call, so drawing it never waits for the device: each rank of a
     data-parallel group draws its own noise fields, and rank 0 those of one
     process. A resumed run draws the stream afresh, as its loader starts
-    its epochs afresh."""
+    its epochs afresh. ``sample_dtype`` goes to
+    :func:`apply_augmentation_device`."""
     generator = None
     seed = noise_seed(seed, rank)
 
@@ -295,7 +305,8 @@ def make_augmented_loss(
             generator = torch.Generator(device=batch["aug_mat0"].device).manual_seed(seed)
         with torch.no_grad():
             out = apply_augmentation_device(
-                batch, generator, crop_h, crop_w, mean_window=mean_window, mean_per_pixel=mean_per_pixel
+                batch, generator, crop_h, crop_w, mean_window=mean_window, mean_per_pixel=mean_per_pixel,
+                sample_dtype=sample_dtype,
             )
         extra = {k: out.pop(k) for k in BATCH_MEAN_KEYS if k in out}
         aug = {k: v.permute(0, 2, 3, 1) for k, v in out.items()}

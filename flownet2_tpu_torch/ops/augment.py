@@ -357,7 +357,14 @@ def affine_position_flow(matrices: torch.Tensor, src_h: int, src_w: int, canvas_
     return torch.stack([xpos - xs, ypos - ys], dim=1)
 
 
-def apply_spatial_transform(images: torch.Tensor, matrices: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def apply_spatial_transform(
+    images: torch.Tensor,
+    matrices: torch.Tensor,
+    out_h: int,
+    out_w: int,
+    *,
+    sample_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
     """Inverse-warp bilinear crop (SpatialAugmentation kernel,
     data_augmentation_layer.cu:25-70) as a flow warp.
 
@@ -372,14 +379,25 @@ def apply_spatial_transform(images: torch.Tensor, matrices: torch.Tensor, out_h:
     clamped positions never read the pad. The flow's round trip
     x + (xpos - x) can move a position by one float32 ulp from the JAX
     gather's.
+
+    ``sample_dtype``: float32 (the default) samples as the reference's Caffe
+    layer and the JAX package's exact route do. ``torch.bfloat16`` is the
+    JAX package's accelerator route (``_apply_spatial_transform_warp``):
+    the image goes to ``flow_warp`` in bfloat16 with the float32 position
+    flow (K1's bf16-image route), and the bf16 result comes back as
+    float32. One difference stays: K1 and its plain version weight the
+    taps in float32, while the TPU kernel rounds its horizontal weights to
+    bfloat16 (up to 2^-9 of a pixel value before the output's rounding).
     """
+    if sample_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sample_dtype must be float32 or bfloat16, got {sample_dtype}")
     n, c, h, w = images.shape
     ch, cw = max(h, out_h), max(w, out_w)
     img = images.float()
     if (ch, cw) != (h, w):
         img = F.pad(img, (0, cw - w, 0, ch - h))
-    out = flow_warp(img.contiguous(), affine_position_flow(matrices, h, w, ch, cw))
-    return out[:, :, :out_h, :out_w]
+    out = flow_warp(img.to(sample_dtype).contiguous(), affine_position_flow(matrices, h, w, ch, cw))
+    return out[:, :, :out_h, :out_w].float()
 
 
 def apply_chromatic_transform(

@@ -23,9 +23,18 @@ the nets better?
   runs/synth/log_train.txt). ``--r5-pipeline
   loader`` feeds cli.train from BatchLoader, each sample once an epoch;
   ``--split PREFIX`` keeps the split at PREFIX (and reuses one found
-  there) instead of a temporary directory; ``--r5-exact-f32`` trains with
-  cuDNN's TF32 off (exact float32, as the reference and the JAX package's
-  CPU route compute; the CLIs keep PyTorch's default, TF32 convolutions);
+  there) instead of a temporary directory. ``--r5-arm`` names the
+  arithmetic each run trains (and scores) under, a comma list run in
+  turns seed by seed, ``ARM:S+S`` for an arm on some of the seeds only:
+  ``tf32`` (the CLIs' default: PyTorch's TF32 cuDNN convolutions),
+  ``exact`` (cuDNN's TF32 off: exact float32, as the reference and the JAX
+  package's CPU route compute; ``--r5-exact-f32`` is its alias),
+  ``bf16-sample`` (the augmentation's affine sample in bfloat16 on K1,
+  the JAX package's accelerator route) and ``tpu`` (the bf16 sample, and
+  every conv and deconv on bfloat16-rounded operands with float32 sums,
+  ``tools/diag/tpu_arith``, TF32 off, in training and in cli.test: the
+  JAX TPU run's arithmetic). ``--r5-workers N`` runs up to N runs on the
+  card at once (the runs are host-bound);
 - ``overfit``: tools.overfit for ``--overfit-iters`` iterations (cosine
   decay) in float32 and in bfloat16 on 8 synthetic FlyingChairs-layout
   pairs (synth_dataset's default settings, 384x512), against its 0.5
@@ -40,10 +49,13 @@ the nets better?
   on the trained weights and the same pairs (f32 and bf16 GT-EPE).
 
 ``--decide A.json[,B.json...]`` trains nothing and needs no card: it pools
-the r5 runs of earlier invocations' convergence.json files by arm (the TF32
-flags each trained under) and applies PERF.md's rules to them: rules (a)
-and (b) to the default arm and, when the gap stays open, the precision rule
-(``precision_decision``) to the two arms.
+the r5 runs of earlier invocations' convergence.json files by the arm each
+records and applies PERF.md's rules (``decide_runs``): rules (a) and (b)
+to the TF32 arm (PR 19's ten seeds, ``PR19_TF32``, unless this call's TF32
+runs drift outside their range), then to each other arm the rule that
+names its arithmetic as the cause (``names_cause``) and, for a naming
+arm, rules (a) and (b) on its own seeds. A training invocation ends with
+the same verdicts over its own runs.
 
 The training split is written in a separate process while the overfit and
 cascade runs use the card. Each tool's own output goes to
@@ -52,8 +64,8 @@ each, to standard output, with the card's name and power limit.
 
     python3 scripts/convergence_runs.py [--out build/convergence] [--runs r5,overfit,cascade]
         [--r5-iters 6016] [--train-seeds 3[,5,...]] [--r5-pipeline cache|loader] [--r5-min-echo E]
-        [--split PREFIX] [--r5-exact-f32] [--overfit-iters 2000] [--cascade-iters 800]
-        [--cascade-fusion-iters F]
+        [--split PREFIX] [--r5-arm tf32|exact|bf16-sample|tpu[:S+S][,...]] [--r5-workers N]
+        [--overfit-iters 2000] [--cascade-iters 800] [--cascade-fusion-iters F]
     python3 scripts/convergence_runs.py --decide A/convergence.json,B/convergence.json
 """
 
@@ -72,16 +84,50 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-# cli.train with device-cache constructor options (JSON in argv[1]), which
-# no flag of the CLI sets; its last line is the TF32 flags it trained under
-# ("exact_f32": true in the JSON turns cuDNN's TF32 off before main)
+# cli.train with device-cache constructor options and an arm's arithmetic
+# (JSON in argv[1]), which no flag of the CLI sets; its last line is the
+# TF32 flags it trained under. "exact_f32" turns cuDNN's TF32 off before
+# main, "sample_dtype" names the augmentation's affine sample dtype,
+# "bf16_pass_convs" routes the net's convs through tools/diag/tpu_arith.
 TRAIN_WITH_OPTIONS = ("import json, sys, torch; from flownet2_tpu_torch.cli.train import main\n"
+                      "from flownet2_tpu_torch.tools.diag.tpu_arith import route_convs\n"
                       "options = json.loads(sys.argv[1])\n"
                       "if options.pop('exact_f32', False):\n"
                       "    torch.backends.cudnn.allow_tf32 = False\n"
-                      "rc = main(sys.argv[2:], cache_options=options)\n"
+                      "sample_dtype = getattr(torch, options.pop('sample_dtype', 'float32'))\n"
+                      "hook = route_convs if options.pop('bf16_pass_convs', False) else None\n"
+                      "rc = main(sys.argv[2:], cache_options=options, sample_dtype=sample_dtype, net_hook=hook)\n"
                       "print('TF32: cudnn', torch.backends.cudnn.allow_tf32, 'matmul', "
                       "torch.backends.cuda.matmul.allow_tf32); sys.exit(rc)")
+# cli.test with the net's convs on bfloat16-rounded operands, TF32 off
+TEST_BF16_PASS = ("import sys, torch; from flownet2_tpu_torch.cli.test import main\n"
+                  "from flownet2_tpu_torch.tools.diag.tpu_arith import route_convs\n"
+                  "torch.backends.cudnn.allow_tf32 = False\n"
+                  "sys.exit(main(sys.argv[1:], net_hook=route_convs))")
+# each arm's options for TRAIN_WITH_OPTIONS, and whether cli.test scores its
+# snapshots with bfloat16-pass convolutions
+ARMS = {
+    "tf32": ({}, False),
+    "exact": ({"exact_f32": True}, False),
+    "bf16-sample": ({"sample_dtype": "bfloat16"}, False),
+    "tpu": ({"exact_f32": True, "sample_dtype": "bfloat16", "bf16_pass_convs": True}, True),
+}
+# PR 19's ten TF32 runs of the recipe at 6016 iterations (PERF.md section 6
+# of commit 9091439, its per-seed table; seeds 3-13 from PR 18's call):
+# seed, held-out EPE at 1504/3008/4512/6016, display-loss means over
+# 1536-3008 and 3104-6016. Their convergence.json files are not kept.
+PR19_TF32 = [
+    (3, 10.9106, 8.4999, 9.4003, 7.3258, 70.1932, 55.4803),
+    (5, 9.2439, 9.5697, 7.7900, 9.1385, 68.8607, 54.1839),
+    (7, 12.3146, 9.9384, 8.3519, 8.1696, 69.2892, 55.3237),
+    (11, 9.7638, 8.6455, 7.5298, 8.8075, 69.9541, 54.8791),
+    (13, 11.5810, 9.3768, 9.0893, 7.0475, 70.8910, 56.6667),
+    (17, 12.0180, 10.7421, 8.4152, 9.3708, 75.4393, 58.0681),
+    (19, 10.8312, 8.5260, 8.3458, 7.2900, 68.7178, 54.0572),
+    (23, 11.7112, 10.4245, 8.4975, 7.8956, 72.9484, 58.5489),
+    (29, 10.8920, 9.4084, 9.0931, 7.3025, 69.4658, 54.6374),
+    (31, 10.6483, 8.9218, 7.9417, 7.1600, 69.7809, 55.6473),
+]
 JAX_R5 = os.path.join(ROOT, "runs", "synth")  # run_r5.sh's outputs on the TPU
 HELD_OUT = (3008, 4512, 6016)  # the snapshots whose mean EPE the decision rule compares
 LOSS_WINDOWS = ((1536, 3008), (3104, 6016))
@@ -160,19 +206,19 @@ def r5_decision(port: list[dict], jax: dict) -> dict:
     return dict(a=a, b=b, closed=all(x["within"] for x in a) and b["within"])
 
 
-def precision_decision(default: list[dict], exact: list[dict], jax: dict) -> dict:
-    """PERF.md's rule naming precision as the cause of the later-loss gap:
-    the exact-float32 arm's mean display loss over 3104-6016 lies below the
-    default (TF32) arm's by more than 2 standard errors of the difference
-    (Welch), and the JAX run's mean over that window lies within the exact
-    arm's min-max."""
-    d, e = ([r["loss_means"][1] for r in runs] for runs in (default, exact))
+def names_cause(base: list[dict], arm: list[dict], jax: dict) -> dict:
+    """PERF.md's rule naming an arm's arithmetic as the cause of the
+    later-loss gap: the arm's mean display loss over 3104-6016 lies below
+    the base (TF32) arm's by more than 2 standard errors of the difference
+    (Welch), and the JAX run's mean over that window lies within the arm's
+    min-max."""
+    d, e = ([r["loss_means"][1] for r in runs] for runs in (base, arm))
     diff = statistics.mean(d) - statistics.mean(e)
     se = (statistics.variance(d) / len(d) + statistics.variance(e) / len(e)) ** 0.5
     jax_late = jax["loss_means"][1]
     below, covers = diff > 2 * se, min(e) <= jax_late <= max(e)
-    return dict(default_mean=statistics.mean(d), exact_mean=statistics.mean(e), diff=diff, se=se, below=below,
-                exact_min=min(e), exact_max=max(e), jax=jax_late, jax_within_exact=covers, named=below and covers)
+    return dict(base_mean=statistics.mean(d), arm_mean=statistics.mean(e), diff=diff, se=se, below=below,
+                arm_min=min(e), arm_max=max(e), jax=jax_late, jax_within_arm=covers, named=below and covers)
 
 
 def train_rate(log: str) -> float:
@@ -184,52 +230,113 @@ def train_rate(log: str) -> float:
     return (its[-1] - its[0]) / secs
 
 
+def pr19_tf32() -> list[dict]:
+    """PR19_TF32 as runs of the "tf32" arm."""
+    return [dict(seed=seed, arm="tf32", tf32="TF32: cudnn True matmul False (PR 19)", rate=None,
+                 loss_means=[early, late], epe={1504: e1, 3008: e2, 4512: e3, 6016: e4})
+            for seed, e1, e2, e3, e4, early, late in PR19_TF32]
+
+
+def r5_rows(runs: list[dict]) -> list[dict]:
+    """The runs of convergence.json's "r5" entry as decide_runs takes them."""
+    return [dict(seed=r["seed"], arm=r["arm"], tf32=r["tf32"], loss_means=r["loss_means"], rate=r.get("iter_per_s"),
+                 epe={c["iteration"]: c["epe"] for c in r["curve"]}) for r in runs]
+
+
+def decide_runs(runs: list[dict], jax: dict, log=print) -> str:
+    """PERF.md's rules over runs pooled by arm (``r5_rows``); returns the
+    decision. The TF32 arm is PR 19's ten runs unless a TF32 run here has
+    its 3104-6016 loss mean outside their range (drift): then the TF32 runs
+    here are the arm. Rules (a) and (b) over the TF32 arm; for each other
+    arm, ``names_cause`` and, where it names, rules (a) and (b) over the
+    arm's own seeds. The bf16 sample is read before the whole TPU
+    arithmetic (it stacks on the sample): the first naming arm of the two
+    decides."""
+    arms: dict[str, list] = {}
+    for r in runs:
+        arms.setdefault(r["arm"], []).append(r)
+    base = pr19_tf32()
+    lo, hi = min(r["loss_means"][1] for r in base), max(r["loss_means"][1] for r in base)
+    drift = [r for r in arms.get("tf32", []) if not lo <= r["loss_means"][1] <= hi]
+    for r in arms.get("tf32", []):
+        log(f"[decide] TF32 drift check, seed {r['seed']}: losses 3104-6016 {r['loss_means'][1]:.4f}, "
+            f"PR 19's ten seeds {lo:.4f}-{hi:.4f}: {'outside' if r in drift else 'within'}")
+    if drift:
+        if len(arms["tf32"]) < 5:
+            log("[decide] decision: undecided: the TF32 arm drifted; train TF32 on all ten seeds")
+            return "undecided"
+        base = arms["tf32"]
+        log(f"[decide] the TF32 arm drifted: its {len(base)} runs here replace PR 19's")
+    else:
+        log("[decide] the TF32 arm: PR 19's ten seeds (PR19_TF32)")
+    arms["tf32"] = base
+    for arm, rows in arms.items():
+        for r in rows:
+            held = sum(r["epe"][it] for it in HELD_OUT) / len(HELD_OUT)
+            log(f"[decide] {arm} seed {r['seed']}: {' / '.join(f'{r['epe'][it]:.4f}' for it in (1504,) + HELD_OUT)}"
+                f"; mean {held:.4f}; {' / '.join(f'{m:.4f}' for m in r['loss_means'])}; {r['tf32']}"
+                f"{'' if r['rate'] is None else f'; {r['rate']:.2f} iter/s'}")
+
+    def rules(name, rows):
+        d = r5_decision(rows, jax)
+        for w in d["a"]:
+            log(f"[decide] rule (a), {len(rows)} {name} seeds, losses {w['window'][0]}-{w['window'][1]}: "
+                f"JAX {w['jax']:.4f}, port {w['port_min']:.4f}-{w['port_max']:.4f}: "
+                f"{'within' if w['within'] else 'outside'}")
+        b = d["b"]
+        log(f"[decide] rule (b), {name}, mean held-out EPE over {HELD_OUT}: JAX {b['jax']:.4f}, port mean "
+            f"{b['port_mean']:.4f}, sample sd {b['port_sd']:.4f}, JAX at {b['z']:+.2f} sd: "
+            f"{'within' if b['within'] else 'outside'} 2 sd")
+        return d["closed"]
+
+    if rules("tf32", base):
+        log("[decide] decision: the run_r5.sh gap is closed as consistent")
+        return "closed as consistent"
+    named = {}
+    for arm in ("exact", "bf16-sample", "tpu"):
+        rows = arms.get(arm, [])
+        if len(rows) < 2:
+            continue
+        p = names_cause(base, rows, jax)
+        log(f"[decide] arm {arm}, {len(rows)} seeds: losses 3104-6016 mean {p['arm_mean']:.4f} "
+            f"({p['arm_min']:.4f}-{p['arm_max']:.4f}) against TF32's {p['base_mean']:.4f}; difference "
+            f"{p['diff']:+.4f}, Welch SE {p['se']:.4f}: {'more' if p['below'] else 'not more'} than 2 SE below; "
+            f"JAX {p['jax']:.4f} {'within' if p['jax_within_arm'] else 'outside'} its min-max: "
+            f"{'names' if p['named'] else 'does not name'} its arithmetic")
+        same = {r["seed"]: r for r in base}
+        pairs = [(r["seed"], r["loss_means"][1] - same[r["seed"]]["loss_means"][1]) for r in rows if r["seed"] in same]
+        if pairs:  # not part of the rule: a seed does not repeat on the card
+            log(f"[decide] arm {arm} minus TF32 on the same seeds, 3104-6016 (outside the rule): "
+                f"{', '.join(f'seed {s_}: {v:+.4f}' for s_, v in pairs)}; "
+                f"mean {statistics.mean(v for _, v in pairs):+.4f}")
+        if p["named"]:
+            named[arm] = rules(arm, rows)
+    cause = next((arm for arm in ("bf16-sample", "tpu") if arm in named), None)
+    if cause is not None:
+        what = {"bf16-sample": "the bf16 sample", "tpu": "the TPU run's whole arithmetic"}[cause]
+        verdict = (f"{what} accounts for the gap: " + ("closed as the TPU run's arithmetic, not a port fault"
+                                                       if named[cause] else
+                                                       "still open: rule (a) or (b) fails on its own seeds"))
+    elif "bf16-sample" in arms or "tpu" in arms:
+        verdict = "neither arm names the cause: open, with precision and the sample excluded"
+    elif named:
+        verdict = "precision names the cause: " + ("closed" if named["exact"] else "still open")
+    else:
+        verdict = "open"
+    log(f"[decide] decision: {verdict}")
+    return verdict
+
+
 def decide(paths: list[str]) -> int:
-    """Pool the r5 runs of several convergence.json files by arm (the TF32
-    flags each run trained under) and apply PERF.md's rules: r5_decision to
-    the default arm and, with an exact-float32 arm, precision_decision."""
-    arms: dict[str, list] = {"default": [], "exact": []}
-    jax = None
+    """Pool the r5 runs of several convergence.json files by the arm each
+    records and apply ``decide_runs``."""
+    runs, jax = [], None
     for path in paths:
         with open(path) as f:
             r5 = json.load(f)["r5"]
         jax = r5["jax"]
-        for r in r5["runs"]:
-            arm = "exact" if "cudnn False" in r["tf32"] else "default"
-            arms[arm].append(dict(seed=r["seed"], tf32=r["tf32"], loss_means=r["loss_means"],
-                                  epe={c["iteration"]: c["epe"] for c in r["curve"]}, rate=r.get("iter_per_s")))
-    jax = dict(jax, curve={int(k): v for k, v in jax["curve"].items()})
-    for arm, runs in arms.items():
-        for r in runs:
-            held = sum(r["epe"][it] for it in HELD_OUT) / len(HELD_OUT)
-            print(f"[decide] {arm} seed {r['seed']}: {' / '.join(f'{r['epe'][it]:.4f}' for it in (1504,) + HELD_OUT)}"
-                  f"; mean {held:.4f}; {' / '.join(f'{m:.4f}' for m in r['loss_means'])}; {r['tf32']}"
-                  f"{'' if r['rate'] is None else f'; {r['rate']:.2f} iter/s'}")
-    d = r5_decision(arms["default"], jax)
-    for w in d["a"]:
-        print(f"[decide] rule (a), {len(arms['default'])} default seeds, losses {w['window'][0]}-{w['window'][1]}: "
-              f"JAX {w['jax']:.4f}, port {w['port_min']:.4f}-{w['port_max']:.4f}: "
-              f"{'within' if w['within'] else 'outside'}")
-    b = d["b"]
-    print(f"[decide] rule (b), mean held-out EPE over {HELD_OUT}: JAX {b['jax']:.4f}, port mean {b['port_mean']:.4f}, "
-          f"sample sd {b['port_sd']:.4f}, JAX at {b['z']:+.2f} sd: {'within' if b['within'] else 'outside'} 2 sd")
-    verdict = "closed as consistent" if d["closed"] else "open"
-    if not d["closed"] and len(arms["exact"]) > 1:
-        p = precision_decision(arms["default"], arms["exact"], jax)
-        print(f"[decide] precision: losses 3104-6016, default mean {p['default_mean']:.4f}, exact-f32 mean "
-              f"{p['exact_mean']:.4f} ({p['exact_min']:.4f}-{p['exact_max']:.4f}); difference {p['diff']:+.4f}, "
-              f"Welch SE {p['se']:.4f}: {'more' if p['below'] else 'not more'} than 2 SE below; JAX {p['jax']:.4f} "
-              f"{'within' if p['jax_within_exact'] else 'outside'} the exact arm's min-max")
-        same = {r["seed"]: r for r in arms["default"]}
-        pairs = [(r["seed"], r["loss_means"][1] - same[r["seed"]]["loss_means"][1]) for r in arms["exact"]
-                 if r["seed"] in same]
-        if pairs:  # not part of the rule: a seed does not repeat on the card
-            print(f"[decide] the same seeds in both arms, exact minus default over 3104-6016: "
-                  f"{', '.join(f'seed {s_}: {v:+.4f}' for s_, v in pairs)}; "
-                  f"mean {statistics.mean(v for _, v in pairs):+.4f}")
-        if p["named"] and not d["a"][1]["within"]:
-            verdict = "precision named as the cause"
-    print(f"[decide] decision: the run_r5.sh gap is {verdict}")
+        runs += r5_rows(r5["runs"])
+    decide_runs(runs, dict(jax, curve={int(k): v for k, v in jax["curve"].items()}))
     return 0
 
 
@@ -293,12 +400,102 @@ def cascade_run(pairs: str, work: str, out: str, iters: int, fusion_iters: int, 
     return merged
 
 
-def heldout_epe(weights: str, eval_rec: str, log_path: str) -> float:
-    rc, out, _ = run([sys.executable, "-m", "flownet2_tpu_torch.cli.test", "--weights", weights, "--model", "flownets",
+def heldout_epe(weights: str, eval_rec: str, log_path: str, bf16_pass: bool = False) -> float:
+    """cli.test's mean EPE of FlowNetS ``weights`` on the held-out split;
+    ``bf16_pass``: its convs on bfloat16-rounded operands (TEST_BF16_PASS)."""
+    test = ["-c", TEST_BF16_PASS] if bf16_pass else ["-m", "flownet2_tpu_torch.cli.test"]
+    rc, out, _ = run([sys.executable, *test, "--weights", weights, "--model", "flownets",
                       "--dataset", "flowrec", "--data-root", eval_rec, "--batch", "4", "--gpu", "0"], log_path, 600)
     if rc != 0:
         raise RuntimeError(f"cli.test {weights}: exit {rc}")
     return float([line for line in out.splitlines() if line.startswith("Loss:")][-1].rsplit("=", 1)[1])
+
+
+def r5_jobs(spec: str, seeds: list[int]) -> list[tuple[int, str]]:
+    """(seed, arm) of each r5 run, seed by seed with the arms in turns:
+    ``spec`` is a comma list of arms, ``ARM:S+S`` for an arm on those of
+    ``seeds`` only."""
+    arms = {}
+    for item in spec.split(","):
+        arm, _, only = item.partition(":")
+        if arm not in ARMS:
+            raise SystemExit(f"--r5-arm: unknown arm {arm!r} (one of {', '.join(ARMS)})")
+        arms[arm] = {int(v) for v in only.split("+")} if only else set(seeds)
+    return [(seed, arm) for seed in seeds for arm, on in arms.items() if seed in on]
+
+
+def r5_runs(args, jobs: list[tuple[int, str]], prefix: str, data: str, out: str, card: str, results: dict,
+            save) -> None:
+    """Train and score the r5 recipe once for each (seed, arm) of ``jobs``,
+    up to ``--r5-workers`` at once, in the jobs' order; then the verdicts
+    of ``decide_runs`` over them at the recipe's full length. The runs go
+    to ``results["r5"]``, saved as each ends."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    jax = jax_r5()
+    eval_rec = prefix + "_eval.flowrec"
+    pipeline = args.r5_pipeline
+    if pipeline == "cache":
+        pipeline += f", min_echo {args.r5_min_echo if args.r5_min_echo is not None else 'default'}"
+    tag = args.r5_pipeline + ("" if args.r5_min_echo is None else f"_echo{args.r5_min_echo:g}")
+    init = {bf16: heldout_epe("random", eval_rec, os.path.join(out, f"r5_eval_init{'_bf16pass' if bf16 else ''}.log"),
+                              bf16) for bf16 in sorted({ARMS[arm][1] for _, arm in jobs})}
+    done: dict[tuple, dict] = {}
+    lock = threading.Lock()
+    r5 = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448", iters=args.r5_iters,
+              pipeline=pipeline, workers=args.r5_workers, runs=[], jax=jax)
+    results["r5"] = r5
+
+    def one(seed: int, arm: str) -> None:
+        options, bf16_pass = ARMS[arm]
+        name = f"{tag}_{arm}_seed{seed}"
+        snaps = os.path.join(data, f"snaps_{name}")
+        cli = ["--model", "flownets", "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec",
+               "--crop", "320x448", "--batch", "8", "--max-iter", str(args.r5_iters), "--schedule", "S_short",
+               "--solver", "adam", "--base-lr", "2e-4", "--display", "96", "--snapshot-dir", snaps,
+               "--snapshot-interval", "1504", "--seed", str(seed), "--gpu", "0"]
+        if args.r5_pipeline == "cache":
+            cli += ["--device-cache", "256", "--cache-slab", "64", "--steps-per-dispatch", "32"]
+        options = dict(options, **({} if args.r5_min_echo is None else {"min_echo": args.r5_min_echo}))
+        rc, text, secs = run([sys.executable, "-u", "-c", TRAIN_WITH_OPTIONS, json.dumps(options), *cli],
+                             os.path.join(out, f"r5_train_{name}.log"), 3600)
+        if rc != 0:
+            raise RuntimeError(f"cli.train {arm} seed {seed}: exit {rc}")
+        cache_line = next((line for line in text.splitlines() if line.startswith("Device cache:")), None)
+        tf32 = [line for line in text.splitlines() if line.startswith("TF32:")][-1]
+        curve = [dict(iteration=0, weights="random-init", epe=init[bf16_pass])]
+        for snap in sorted(n for n in os.listdir(snaps) if n.endswith(".npz")):
+            it = int(snap.split("_")[1].split(".")[0])
+            curve.append(dict(iteration=it, weights=snap, epe=heldout_epe(
+                os.path.join(snaps, snap), eval_rec, os.path.join(out, f"r5_eval_{name}_{it:07d}.log"), bf16_pass)))
+        shutil.rmtree(snaps, ignore_errors=True)
+        means, rate = loss_means(display_losses(text)), train_rate(text)
+        row = dict(seed=seed, arm=arm, pipeline=pipeline, train_seconds=secs, iter_per_s=rate, cache=cache_line,
+                   tf32=tf32, loss_means=means, curve=curve)
+        print(f"[convergence] r5 recipe ({pipeline}), arm {arm}, training seed {seed}, held-out mean EPE: "
+              f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)}; display-loss means "
+              f"{LOSS_WINDOWS}: {means}; {tf32}; {cache_line or 'no device cache'}; cli.train {secs:.1f} s, "
+              f"{rate:.2f} iter/s ({card})", flush=True)
+        with lock:
+            done[seed, arm] = row
+            r5["runs"] = [done[j] for j in jobs if j in done]
+            save()
+
+    with ThreadPoolExecutor(max_workers=max(1, args.r5_workers)) as pool:
+        for f in [pool.submit(one, seed, arm) for seed, arm in jobs]:
+            f.result()
+    print(f"[convergence] r5 recipe ({pipeline}), {args.r5_iters} iterations, {args.r5_workers} at once; held-out "
+          f"EPE at {' / '.join(str(it) for it in (1504,) + HELD_OUT)}, display-loss means over "
+          f"{' and '.join(f'{lo}-{hi}' for lo, hi in LOSS_WINDOWS)} ({card}):", flush=True)
+    for name, epe, means, extra in [(f"port {r['arm']} seed {r['seed']}", {c["iteration"]: c["epe"] for c in r["curve"]},
+                                     r["loss_means"], f"{r['tf32']}; {r['cache']}") for r in r5["runs"]] + [
+            ("JAX TPU run (runs/synth), seed 3", jax["curve"], jax["loss_means"], jax["cache"])]:
+        print(f"[convergence]   {name}: {' / '.join(f'{epe[it]:.4f}' if it in epe else '-' for it in (1504,) + HELD_OUT)}"
+              f"; {' / '.join('-' if m is None else f'{m:.4f}' for m in means)}; {extra}", flush=True)
+    if args.r5_iters >= HELD_OUT[-1]:
+        r5["decision"] = decide_runs(r5_rows(r5["runs"]), jax,
+                                     log=lambda m: print(m.replace("[decide]", "[convergence]"), flush=True))
 
 
 def main(argv=None) -> int:
@@ -312,8 +509,11 @@ def main(argv=None) -> int:
     p.add_argument("--r5-min-echo", type=float, default=None,
                    help="the device cache's min_echo (default the cache's own); 16: the JAX run's turnover")
     p.add_argument("--split", default=None, help="keep the r5 split at this prefix, reusing one found there")
-    p.add_argument("--r5-exact-f32", action="store_true",
-                   help="train with cuDNN's TF32 off (torch.backends.cudnn.allow_tf32 = False): exact float32")
+    p.add_argument("--r5-arm", default=None, metavar="ARM[:S+S][,...]",
+                   help=f"the arithmetic of the r5 runs, {', '.join(ARMS)} (default tf32); several run in turns "
+                        "seed by seed; ARM:S+S runs an arm on those of --train-seeds only")
+    p.add_argument("--r5-exact-f32", action="store_true", help="the same as --r5-arm exact")
+    p.add_argument("--r5-workers", type=int, default=1, help="r5 runs on the card at once")
     p.add_argument("--decide", default=None, metavar="JSON[,JSON...]",
                    help="no training: pool the r5 runs of these convergence.json files by arm and apply the rules")
     p.add_argument("--overfit-iters", type=int, default=2000)
@@ -324,6 +524,12 @@ def main(argv=None) -> int:
     runs = args.runs.split(",")
     if args.decide:
         return decide(args.decide.split(","))
+    if args.r5_exact_f32 and args.r5_arm:
+        p.error("--r5-exact-f32 is --r5-arm exact: give one of them")
+    seeds = [int(v) for v in args.train_seeds.split(",")]
+    jobs = r5_jobs("exact" if args.r5_exact_f32 else args.r5_arm or "tf32", seeds)
+    if not jobs:
+        p.error("--r5-arm names no run on --train-seeds")
 
     import torch
 
@@ -381,72 +587,7 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"synth_dataset: exit {gen.returncode}\n{gen_out[-2000:]}")
             print(f"[convergence] synth_dataset 2048 + 64 samples: {time.perf_counter() - t_gen:.1f} s", flush=True)
         if "r5" in runs:
-            jax = jax_r5()
-            init = heldout_epe("random", prefix + "_eval.flowrec", os.path.join(out, "r5_eval_init.log"))
-            runs_out = []
-            pipeline = args.r5_pipeline
-            if pipeline == "cache":
-                pipeline += f", min_echo {args.r5_min_echo if args.r5_min_echo is not None else 'default'}"
-            tag = args.r5_pipeline + ("" if args.r5_min_echo is None else f"_echo{args.r5_min_echo:g}")
-            if args.r5_exact_f32:
-                pipeline += ", exact float32"
-                tag += "_f32"
-            for seed in (int(v) for v in args.train_seeds.split(",")):
-                snaps = os.path.join(data, f"snaps_{tag}_seed{seed}")
-                cli = ["--model", "flownets", "--dataset", "flowrec", "--data-root", prefix + "_train.flowrec",
-                       "--crop", "320x448", "--batch", "8", "--max-iter", str(args.r5_iters), "--schedule", "S_short",
-                       "--solver", "adam", "--base-lr", "2e-4", "--display", "96", "--snapshot-dir", snaps,
-                       "--snapshot-interval", "1504", "--seed", str(seed), "--gpu", "0"]
-                if args.r5_pipeline == "cache":
-                    cli += ["--device-cache", "256", "--cache-slab", "64", "--steps-per-dispatch", "32"]
-                options = {} if args.r5_min_echo is None else {"min_echo": args.r5_min_echo}
-                if args.r5_exact_f32:
-                    options["exact_f32"] = True
-                rc, text, secs = run([sys.executable, "-u", "-c", TRAIN_WITH_OPTIONS, json.dumps(options), *cli],
-                                     os.path.join(out, f"r5_train_{tag}_seed{seed}.log"), 3600)
-                if rc != 0:
-                    raise RuntimeError(f"cli.train seed {seed}: exit {rc}")
-                cache_line = next((line for line in text.splitlines() if line.startswith("Device cache:")), None)
-                tf32 = [line for line in text.splitlines() if line.startswith("TF32:")][-1]
-                curve = [dict(iteration=0, weights="random-init", epe=init)]
-                for name in sorted(n for n in os.listdir(snaps) if n.endswith(".npz")):
-                    it = int(name.split("_")[1].split(".")[0])
-                    curve.append(dict(iteration=it, weights=name, epe=heldout_epe(
-                        os.path.join(snaps, name), prefix + "_eval.flowrec",
-                        os.path.join(out, f"r5_eval_{tag}_seed{seed}_{it:07d}.log"))))
-                shutil.rmtree(snaps, ignore_errors=True)
-                means, rate = loss_means(display_losses(text)), train_rate(text)
-                runs_out.append(dict(seed=seed, pipeline=pipeline, train_seconds=secs, iter_per_s=rate,
-                                     cache=cache_line, tf32=tf32, loss_means=means, curve=curve))
-                print(f"[convergence] r5 recipe ({pipeline}), training seed {seed}, held-out mean EPE: "
-                      f"{', '.join(f'{c['iteration']}: {c['epe']:.4f}' for c in curve)}; display-loss means "
-                      f"{LOSS_WINDOWS}: {means}; {tf32}; {cache_line or 'no device cache'}; cli.train {secs:.1f} s, "
-                      f"{rate:.2f} iter/s ({card})", flush=True)
-                results["r5"] = dict(train_samples=2048, eval_samples=64, resolution="384x512", crop="320x448",
-                                     iters=args.r5_iters, pipeline=pipeline, runs=runs_out, jax=jax)
-                save()
-            print(f"[convergence] r5 recipe ({pipeline}), {args.r5_iters} iterations; held-out EPE at "
-                  f"{' / '.join(str(it) for it in (1504,) + HELD_OUT)}, display-loss means over "
-                  f"{' and '.join(f'{lo}-{hi}' for lo, hi in LOSS_WINDOWS)} ({card}):", flush=True)
-            for name, epe, means, extra in [(f"port seed {r['seed']}", {c["iteration"]: c["epe"] for c in r["curve"]},
-                                             r["loss_means"], f"{r['tf32']}; {r['cache']}") for r in runs_out] + [
-                    ("JAX TPU run (runs/synth), seed 3", jax["curve"], jax["loss_means"], jax["cache"])]:
-                print(f"[convergence]   {name}: {' / '.join(f'{epe[it]:.4f}' if it in epe else '-' for it in (1504,) + HELD_OUT)}"
-                      f"; {' / '.join('-' if m is None else f'{m:.4f}' for m in means)}; {extra}", flush=True)
-            if len(runs_out) > 1 and args.r5_iters >= HELD_OUT[-1]:
-                results["r5"]["decision"] = d = r5_decision(
-                    [dict(loss_means=r["loss_means"], epe={c["iteration"]: c["epe"] for c in r["curve"]})
-                     for r in runs_out], jax)
-                for w in d["a"]:
-                    print(f"[convergence] rule (a), losses {w['window'][0]}-{w['window'][1]}: JAX {w['jax']:.4f}, port "
-                          f"{w['port_min']:.4f}-{w['port_max']:.4f}: {'within' if w['within'] else 'outside'}", flush=True)
-                b_ = d["b"]
-                print(f"[convergence] rule (b), mean held-out EPE over {HELD_OUT}: JAX {b_['jax']:.4f}, port "
-                      f"{', '.join(f'{v:.4f}' for v in b_['port_means'])} (mean {b_['port_mean']:.4f}, sample sd "
-                      f"{b_['port_sd']:.4f}, JAX at {b_['z']:+.2f} sd): {'within' if b_['within'] else 'outside'} 2 sd",
-                      flush=True)
-                print(f"[convergence] decision over these {len(runs_out)} seeds ({pipeline}): the run_r5.sh gap is "
-                      f"{'closed' if d['closed'] else 'open'}", flush=True)
+            r5_runs(args, jobs, prefix, data, out, card, results, save)
             save()
     finally:
         if gen is not None and gen.poll() is None:

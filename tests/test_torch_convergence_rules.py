@@ -1,8 +1,8 @@
 """The decision rules of scripts/convergence_runs.py for the run_r5.sh gap
-(PERF.md section 6): rules (a) and (b) over the default arm, the precision
-rule over a default and an exact-float32 arm (Welch), the iterations a
-second read from a cli.train log, and ``--decide``, which pools several
-invocations' runs by the TF32 flags each trained under. Plain numbers: no
+(PERF.md section 6): rules (a) and (b) over the default arm, the rule
+naming an arm's arithmetic (Welch) over a default and an exact-float32 arm,
+the iterations a second read from a cli.train log, and ``--decide``, which
+pools several invocations' runs by the arm each records. Plain numbers: no
 card, no net."""
 
 import json
@@ -41,7 +41,7 @@ def test_r5_decision_closes_only_when_jax_lies_inside_both_windows_and_2_sd():
 ])
 def test_precision_decision_needs_a_welch_gap_and_jax_inside_the_exact_arm(exact, named):
     default = [run(v) for v in (55.0, 56.0, 54.5, 55.5, 56.5)]
-    p = cr.precision_decision(default, [run(v) for v in exact], JAX)
+    p = cr.names_cause(default, [run(v) for v in exact], JAX)
     assert p["named"] is named
     d, e = [55.0, 56.0, 54.5, 55.5, 56.5], exact
     se = (sum((x - sum(d) / 5) ** 2 for x in d) / 4 / 5 + sum((x - sum(e) / 4) ** 2 for x in e) / 3 / 4) ** 0.5
@@ -56,20 +56,24 @@ def test_train_rate_leaves_out_the_first_display_chunk():
 
 
 def test_decide_pools_the_runs_of_several_files_by_their_tf32_flags(tmp_path, capsys):
-    def invocation(name, flags, lates):
-        runs = [dict(seed=s, tf32=f"TF32: cudnn {flags} matmul False", loss_means=[70.0, v], iter_per_s=40.0,
-                     curve=[dict(iteration=it, epe=8.0 + s / 20) for it in (0, 1504, 3008, 4512, 6016)])
+    def invocation(name, arm, lates):
+        flags = arm == "tf32"
+        runs = [dict(seed=s, arm=arm, tf32=f"TF32: cudnn {flags} matmul False", loss_means=[70.0, v],
+                     iter_per_s=40.0, curve=[dict(iteration=it, epe=8.0 + s / 20) for it in (0, 1504, 3008, 4512, 6016)])
                 for s, v in lates]
         path = tmp_path / f"{name}.json"
         path.write_text(json.dumps({"r5": {"runs": runs, "jax": dict(JAX, curve={str(k): v for k, v in
                                                                                JAX["curve"].items()})}}))
         return str(path)
 
-    paths = [invocation("a", "True", [(3, 55.0), (5, 56.0)]), invocation("b", "True", [(17, 54.5), (19, 55.5)]),
-             invocation("c", "False", [(3, 54.0), (5, 55.0)])]
+    # seed 5's TF32 run drifts outside PR 19's range, so the five TF32 runs here are the arm
+    paths = [invocation("a", "tf32", [(3, 55.0), (5, 60.0)]),
+             invocation("b", "tf32", [(17, 54.5), (19, 55.5), (23, 56.0)]),
+             invocation("c", "exact", [(3, 54.0), (5, 55.0)])]
     assert cr.main(["--decide", ",".join(paths)]) == 0
     out = capsys.readouterr().out
-    assert "rule (a), 4 default seeds, losses 3104-6016: JAX 53.0000, port 54.5000-56.0000: outside" in out
-    assert out.count("[decide] exact seed") == 2 and out.count("[decide] default seed") == 4
-    assert "seed 3: -1.0000, seed 5: -1.0000; mean -1.0000" in out
-    assert out.rstrip().endswith("decision: the run_r5.sh gap is open")
+    assert "TF32 drift check, seed 5: losses 3104-6016 60.0000, PR 19's ten seeds 54.0572-58.5489: outside" in out
+    assert "rule (a), 5 tf32 seeds, losses 3104-6016: JAX 53.0000, port 54.5000-60.0000: outside" in out
+    assert out.count("[decide] exact seed") == 2 and out.count("[decide] tf32 seed") == 5
+    assert "seed 3: -1.0000, seed 5: -5.0000; mean -3.0000" in out
+    assert out.rstrip().endswith("decision: open")

@@ -1364,3 +1364,41 @@ def test_prefetcher_with_no_device_named_stages_on_the_current_card(cuda):
     assert p.device == torch.device("cuda", torch.cuda.current_device())
     (b,) = list(p)
     assert b["img0"].is_cuda
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["conv 3x3", "deconv k4 s2"])
+def test_bf16_pass_conv_on_card_matches_cpu(cuda, transposed):
+    """tools/diag/tpu_arith's bfloat16-pass conv and deconv, forward and
+    both operand gradients, on the card with cuDNN's TF32 off against the
+    CPU: both sum exact products of bf16 values in float32, so they differ
+    by the order of the sums alone, within 2 n 2^-24 of the terms'
+    magnitudes (n terms a sum)."""
+    from torch import nn
+
+    from flownet2_tpu_torch.tools.diag.tpu_arith import BF16PassConv
+
+    torch.manual_seed(9)
+    layer = nn.ConvTranspose2d(16, 8, 4, stride=2, padding=1) if transposed else nn.Conv2d(16, 24, 3, padding=1)
+    geometry = (layer.stride, layer.padding, layer.dilation, transposed, (0, 0), 1)
+    x = torch.randn(2, 16, 40, 56)
+    g = torch.randn(2, layer.out_channels, *((80, 112) if transposed else (40, 56)))
+
+    def run(device, xx, ww, gg, op=lambda *a: BF16PassConv.apply(*a, geometry)):
+        xx, ww = (t.detach().to(device).requires_grad_() for t in (xx, ww))
+        out = op(xx, ww, None)
+        out.backward(gg.to(device))
+        return [t.detach().cpu().double() for t in (out, xx.grad, ww.grad)]
+
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = run(cuda, x, layer.weight.detach(), g)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    ref = run("cpu", x, layer.weight.detach(), g)
+    bf = [t.bfloat16().double() for t in (x, layer.weight.detach(), g)]
+    mags = run("cpu", *[t.abs() for t in bf], op=lambda a, b, _: torch.ops.aten.convolution(a, b, None, *geometry))
+    terms = (layer.in_channels * 16 if transposed else 16 * 9, layer.out_channels * (16 if transposed else 9),
+             2 * g.shape[2] * g.shape[3])
+    for got_, ref_, mag, n in zip(got, ref, mags, terms):
+        assert ((got_ - ref_).abs() <= 2 * n * 2.0 ** -24 * mag + 1e-30).all()
