@@ -12,6 +12,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from flownet2_tpu_torch.checkpoint import init_params, load_into
 from flownet2_tpu_torch.core.adapt import adapt_shape
@@ -84,6 +85,11 @@ class FlowRunner:
     decoder head as one fused call (the K4 kernel on the card), the
     counterpart of the JAX package's ``FLOWNET2_TPU_FUSION_HEAD=1``;
     ``flownet2`` only, default off.
+
+    ``batch`` runs in four ``torch.profiler.record_function`` ranges, one
+    after another: ``fn2.runner.prepare`` (the frames to float32 on the
+    host), ``fn2.runner.upload``, ``fn2.runner.forward`` (all of ``run``)
+    and ``fn2.runner.download``.
     """
 
     def __init__(self, model: str, params: dict, *, device, dtype=None, fusion_head: bool = False):
@@ -104,21 +110,22 @@ class FlowRunner:
     @torch.inference_mode()
     def run(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) RGB tensors on the runner's device -> (N, H, W, 2) float32 flow."""
-        if img0.shape != img1.shape:
-            raise ValueError(f"image shapes differ: {tuple(img0.shape)} vs {tuple(img1.shape)}")
-        h, w = img0.shape[1], img0.shape[2]
-        geom = adapt_shape(h, w)
-        ah, aw = geom.adapted_height, geom.adapted_width
-        # adapt the input resolution (the deploy nets' leading Resample layers)
-        x0 = resample(to_nchw(img0.float()), ah, aw).to(self.dtype)
-        x1 = resample(to_nchw(img1.float()), ah, aw).to(self.dtype)
-        flow = self._forward(self.net, x0, x1)
-        # back to the input size, u and v rescaled per axis; dispnetc's one
-        # disparity channel broadcasts to (d * scale_w, d * scale_h), as the
-        # JAX runner's output does
-        flow = resample(flow.float(), h, w, antialias=False)
-        scale = torch.tensor([geom.scale_width, geom.scale_height], device=flow.device)
-        return to_nhwc(flow * scale.view(1, 2, 1, 1))
+        with record_function("fn2.runner.forward"):
+            if img0.shape != img1.shape:
+                raise ValueError(f"image shapes differ: {tuple(img0.shape)} vs {tuple(img1.shape)}")
+            h, w = img0.shape[1], img0.shape[2]
+            geom = adapt_shape(h, w)
+            ah, aw = geom.adapted_height, geom.adapted_width
+            # adapt the input resolution (the deploy nets' leading Resample layers)
+            x0 = resample(to_nchw(img0.float()), ah, aw).to(self.dtype)
+            x1 = resample(to_nchw(img1.float()), ah, aw).to(self.dtype)
+            flow = self._forward(self.net, x0, x1)
+            # back to the input size, u and v rescaled per axis; dispnetc's one
+            # disparity channel broadcasts to (d * scale_w, d * scale_h), as the
+            # JAX runner's output does
+            flow = resample(flow.float(), h, w, antialias=False)
+            scale = torch.tensor([geom.scale_width, geom.scale_height], device=flow.device)
+            return to_nhwc(flow * scale.view(1, 2, 1, 1))
 
     def __call__(self, img0: np.ndarray, img1: np.ndarray) -> np.ndarray:
         """img0/img1: (H, W, 3) uint8/float RGB -> (H, W, 2) float32 flow."""
@@ -126,6 +133,11 @@ class FlowRunner:
 
     def batch(self, img0: np.ndarray, img1: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) -> (N, H, W, 2)."""
-        i0 = torch.as_tensor(np.asarray(img0, np.float32), device=self.device)
-        i1 = torch.as_tensor(np.asarray(img1, np.float32), device=self.device)
-        return self.run(i0, i1).cpu().numpy()
+        with record_function("fn2.runner.prepare"):
+            f0, f1 = np.asarray(img0, np.float32), np.asarray(img1, np.float32)
+        with record_function("fn2.runner.upload"):
+            i0 = torch.as_tensor(f0, device=self.device)
+            i1 = torch.as_tensor(f1, device=self.device)
+        flow = self.run(i0, i1)
+        with record_function("fn2.runner.download"):
+            return flow.cpu().numpy()

@@ -15,13 +15,17 @@ Counterpart of flownet2_tpu/models/flownet2.py, deploy-graph semantics:
 6. the fusion net on [img0, sd, css, |sd|, |css|, |err_sd|, |err_css|].
 
 The ``*_forward`` functions work on NCHW tensors; the ``*_apply`` functions
-take and return NHWC, as the JAX package's do.
+take and return NHWC, as the JAX package's do. Each sub-net runs inside a
+``torch.profiler.record_function`` range named after its attribute of
+:class:`FlowNet2` (``fn2.net.flownetc`` ... ``fn2.net.fusion``); the glue
+between them runs outside.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from flownet2_tpu_torch.models.common import to_nchw, to_nhwc
 from flownet2_tpu_torch.models.flownet_c import FlowNetC
@@ -66,29 +70,35 @@ def _upsample_flow_4x(flow_quarter: torch.Tensor, scale: float) -> torch.Tensor:
     return resample(flow_quarter * scale, h, w, antialias=False)
 
 
-def _cascade_stage(net_s: FlowNetS, x0, x1, flow_full):
-    """One S refinement stage: warp, error, stack, run FlowNetS."""
+def _cascade_stage(net: FlowNet2, stage: str, x0, x1, flow_full):
+    """One S refinement stage (``stage``: ``flownets_1`` or ``flownets_2``):
+    warp, error, stack, run that FlowNetS."""
     warped = flow_warp(x1, flow_full)
     err = channel_norm(x0 - warped)
     stacked = torch.cat([x0, x1, warped, flow_full / DIV_FLOW, err], dim=1)
-    flows = net_s(stacked)
+    with record_function(f"fn2.net.{stage}"):
+        flows = getattr(net, stage)(stacked)
     return _upsample_flow_4x(flows["flow2"], DIV_FLOW), flows
 
 
 def _cs(net: FlowNet2, x0, x1) -> torch.Tensor:
-    flow_c = _upsample_flow_4x(net.flownetc(x0, x1)["flow2"], DIV_FLOW)
-    return _cascade_stage(net.flownets_1, x0, x1, flow_c)[0]
+    with record_function("fn2.net.flownetc"):
+        flows_c = net.flownetc(x0, x1)
+    flow_c = _upsample_flow_4x(flows_c["flow2"], DIV_FLOW)
+    return _cascade_stage(net, "flownets_1", x0, x1, flow_c)[0]
 
 
 def _css(net: FlowNet2, x0, x1) -> torch.Tensor:
-    return _cascade_stage(net.flownets_2, x0, x1, _cs(net, x0, x1))[0]
+    return _cascade_stage(net, "flownets_2", x0, x1, _cs(net, x0, x1))[0]
 
 
 def build_fusion_inputs(net: FlowNet2, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
     """Everything upstream of the fusion net, on normalized NCHW frames: the
     CSS branch, the SD branch and the 11-channel fusion input stack."""
     css_flow = _css(net, x0, x1)
-    flows_sd = net.flownetsd(torch.cat([x0, x1], dim=1))
+    both = torch.cat([x0, x1], dim=1)
+    with record_function("fn2.net.flownetsd"):
+        flows_sd = net.flownetsd(both)
     sd_flow = _upsample_flow_4x(flows_sd["flow2"], 1.0 / DIV_FLOW)
     err_sd = channel_norm(x0 - flow_warp(x1, sd_flow))
     err_css = channel_norm(x0 - flow_warp(x1, css_flow))
@@ -111,7 +121,9 @@ def flownet2_forward(net: FlowNet2, img0: torch.Tensor, img1: torch.Tensor) -> t
     """Full FlowNet2 on raw 0-255 (N, 3, H, W) frames, H and W divisible by
     64 -> (N, 2, H, W) flow."""
     x0, x1 = normalize_images(img0, img1)
-    return net.fusion(build_fusion_inputs(net, x0, x1))["flow0"]
+    fused_in = build_fusion_inputs(net, x0, x1)
+    with record_function("fn2.net.fusion"):
+        return net.fusion(fused_in)["flow0"]
 
 
 def flownet2_cs_apply(net: FlowNet2, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:

@@ -163,8 +163,8 @@ def make_cascade_stage_loss(stage: str) -> Callable:
         with torch.no_grad():
             upstream = _upsample_flow_4x(net.flownetc(x0, x1)["flow2"], DIV_FLOW)
             if stage == "flownets_2":
-                upstream = _cascade_stage(net.flownets_1, x0, x1, upstream)[0]
-        _, flows = _cascade_stage(getattr(net, stage), x0, x1, upstream)
+                upstream = _cascade_stage(net, "flownets_1", x0, x1, upstream)[0]
+        _, flows = _cascade_stage(net, stage, x0, x1, upstream)
         total, per_scale = multiscale_l1_loss(flows, flow / DIV_FLOW)
         return total, {"loss": total, **per_scale}
 
