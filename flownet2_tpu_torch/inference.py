@@ -16,6 +16,7 @@ from torch.profiler import record_function
 
 from flownet2_tpu_torch.checkpoint import init_params, load_into
 from flownet2_tpu_torch.core.adapt import adapt_shape
+from flownet2_tpu_torch.data.pipeline import pack_into, pack_layout, unpack_views
 from flownet2_tpu_torch.models import NETS
 from flownet2_tpu_torch.models.common import to_nchw, to_nhwc
 from flownet2_tpu_torch.models.flownet2 import (
@@ -87,10 +88,19 @@ class FlowRunner:
     ``flownet2`` only, default off.
 
     ``batch`` runs in four ``torch.profiler.record_function`` ranges, one
-    after another: ``fn2.runner.prepare`` (the frames to float32 on the
-    host), ``fn2.runner.upload``, ``fn2.runner.forward`` (all of ``run``)
-    and ``fn2.runner.download``.
+    after another: ``fn2.runner.prepare``, ``fn2.runner.upload``,
+    ``fn2.runner.forward`` (all of ``run``) and ``fn2.runner.download``.
+    On a card, uint8 frames cross the link as uint8: prepare copies both
+    into one pinned host buffer the runner keeps (grown when a batch needs
+    more bytes), after the buffer's previous copy has completed, and upload
+    enqueues one ``non_blocking`` copy of it; ``run`` converts them to
+    float32 on the card. Frames of any other dtype, and every frame on a
+    CPU runner, are converted to float32 on the host and uploaded from
+    there. ``u8_uploads`` counts the batches staged as uint8, over every
+    instance.
     """
+
+    u8_uploads = 0
 
     def __init__(self, model: str, params: dict, *, device, dtype=None, fusion_head: bool = False):
         check_model(model)
@@ -106,6 +116,7 @@ class FlowRunner:
             net = NETS[model](fusion_head=True) if fusion_head else NETS[model]()
         self.net = load_into(net, params).to(device=self.device, dtype=self.dtype).eval()
         self._forward = _make_forward(model)
+        self._staging = (None, None)  # pinned uint8 host buffer, event of its last copy
 
     @torch.inference_mode()
     def run(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
@@ -133,11 +144,36 @@ class FlowRunner:
 
     def batch(self, img0: np.ndarray, img1: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) -> (N, H, W, 2)."""
-        with record_function("fn2.runner.prepare"):
-            f0, f1 = np.asarray(img0, np.float32), np.asarray(img1, np.float32)
-        with record_function("fn2.runner.upload"):
-            i0 = torch.as_tensor(f0, device=self.device)
-            i1 = torch.as_tensor(f1, device=self.device)
+        u8 = all(isinstance(x, np.ndarray) and x.dtype == np.uint8 for x in (img0, img1))
+        if u8 and self.device.type == "cuda":
+            i0, i1 = self._upload_u8(img0, img1)
+        else:
+            with record_function("fn2.runner.prepare"):
+                f0, f1 = np.asarray(img0, np.float32), np.asarray(img1, np.float32)
+            with record_function("fn2.runner.upload"):
+                i0 = torch.as_tensor(f0, device=self.device)
+                i1 = torch.as_tensor(f1, device=self.device)
         flow = self.run(i0, i1)
         with record_function("fn2.runner.download"):
             return flow.cpu().numpy()
+
+    def _upload_u8(self, img0: np.ndarray, img1: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """Both uint8 frames through the pinned staging buffer: uint8 views on the card."""
+        frames = {"img0": img0, "img1": img1}
+        offsets, total = pack_layout(frames)
+        with record_function("fn2.runner.prepare"):
+            buf, event = self._staging
+            if event is not None:
+                event.synchronize()  # the buffer's previous copy may still be reading it
+            if buf is None or buf.numel() < total:
+                buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            pack_into(buf, frames, offsets)
+        with record_function("fn2.runner.upload"):
+            on_card = torch.empty(total, dtype=torch.uint8, device=self.device)
+            on_card.copy_(buf[:total], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._staging = (buf, event)
+        FlowRunner.u8_uploads += 1
+        views = unpack_views(on_card, frames, offsets)
+        return views["img0"], views["img1"]

@@ -31,11 +31,17 @@ def _spans(prof, prefix: str) -> list:
     return sorted(spans, key=lambda s: s[1])
 
 
-@pytest.mark.parametrize("model", list(SUBNETS))
-def test_batch_opens_the_runner_phases_and_the_cascade_subnets(model, cascade_weights):
+# uint8 frames (the cases' first ids) and the same frames as float32
+FRAME_CASES = [pytest.param(model, np.uint8, id=model) for model in SUBNETS] + [
+    pytest.param(model, np.float32, id=f"{model}-float32") for model in SUBNETS
+]
+
+
+@pytest.mark.parametrize("model, frame_dtype", FRAME_CASES)
+def test_batch_opens_the_runner_phases_and_the_cascade_subnets(model, frame_dtype, cascade_weights):
     runner = FlowRunner(model, cascade_weights, device="cpu")
     rng = np.random.default_rng(3)
-    i0, i1 = (rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8) for _ in range(2))
+    i0, i1 = (rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8).astype(frame_dtype) for _ in range(2))
     plain = runner.batch(i0, i1)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = runner.batch(i0, i1)
