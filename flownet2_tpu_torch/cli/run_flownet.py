@@ -4,14 +4,16 @@ Argument-compatible with flownet2_tpu/cli/run_flownet.py (and the reference
 scripts/run-flownet.py):
 
     python -m flownet2_tpu_torch.cli.run_flownet <weights> <model> <img0> <img1> <out>
-        [--gpu N] [--device DEV] [--dtype float32|bfloat16] [--verbose]
+        [--gpu N] [--device DEV] [--dtype float32|bfloat16] [--iters N] [--verbose]
 
 - ``weights``: the reference's Caffe weights (``.caffemodel`` binaryproto or
   ``.caffemodel.h5``, imported by ``models.import_caffe``), a flat ``.npz``
   in the JAX package's layout (``checkpoint.save_params``), or ``random``
   for seeded random weights (seed 0: the JAX CLI's ``random``, bit for bit);
-- ``model``: flownets|flownetc|flownet2-sd|flownet2-cs|flownet2-css|flownet2|dispnetc, or
-  a deploy-template path whose basename names one;
+- ``model``: flownets|flownetc|flownet2-sd|flownet2-cs|flownet2-css|flownet2|dispnetc|raft,
+  or a deploy-template path whose basename names one. ``raft`` takes ``random``
+  or an ``.npz`` (there is no Caffe RAFT) and ``--iters``, its updates
+  (default 32, its Sintel evaluation's); other models refuse ``--iters``;
 - ``--gpu N`` runs on ``cuda:N``; ``--device`` names a device instead (``cpu``
   for tests). Without a card and without ``--device``, the CLI exits with
   an error: it never falls back to the CPU;
@@ -76,7 +78,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
     p.add_argument("--verbose", action="store_true", help="accepted for compatibility; no effect")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"], help="compute dtype")
+    p.add_argument("--iters", type=int, default=None, help="RAFT's updates (default 32); raft only")
     return p
+
+
+def runner_from_args(args, model: str, weights: dict, device: str):
+    """The ``FlowRunner`` the options ask for; exits with its message on an
+    option the model refuses (``--iters`` on a FlowNet model)."""
+    from flownet2_tpu_torch.inference import FlowRunner
+
+    try:
+        return FlowRunner(model, weights, device=device, dtype=args.dtype, iters=args.iters)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def device_from_args(args) -> str:
@@ -98,11 +112,10 @@ def main(argv=None) -> int:
             raise SystemExit(f"input does not exist: {f}")
 
     from flownet2_tpu_torch.core.flow_io import read_image, write_flo
-    from flownet2_tpu_torch.inference import FlowRunner
 
     model = resolve_model_name(args.deployproto)
     device = device_from_args(args)
-    runner = FlowRunner(model, load_weights(args.caffemodel, model), device=device, dtype=args.dtype)
+    runner = runner_from_args(args, model, load_weights(args.caffemodel, model), device)
     img0 = read_image(args.img0)
     img1 = read_image(args.img1)
     print(f"Network forward pass using {args.caffemodel} on {device}.")

@@ -4,14 +4,14 @@ Argument-compatible with flownet2_tpu/cli/run_flownet_many.py (and the
 reference scripts/run-flownet-many.py):
 
     python -m flownet2_tpu_torch.cli.run_flownet_many <weights> <model> <listfile>
-        [--gpu N] [--device DEV] [--dtype float32|bfloat16] [--verbose]
+        [--gpu N] [--device DEV] [--dtype float32|bfloat16] [--iters N] [--verbose]
 
 - ``listfile``: one job per line, ``img0 img1 out.flo``; blank lines are
   skipped. Every input is checked before the first job runs;
 - one ``FlowRunner`` serves every job, whatever its resolution (PyTorch runs
   eagerly, so nothing is rebuilt when the resolution changes);
-- ``weights``, ``model``, ``--gpu``, ``--device`` and ``--dtype`` as in
-  ``run_flownet``. Without a card and without ``--device``, it exits with
+- ``weights``, ``model``, ``--gpu``, ``--device``, ``--dtype`` and ``--iters``
+  as in ``run_flownet``. Without a card and without ``--device``, it exits with
   an error: it never falls back to the CPU.
 """
 
@@ -52,18 +52,18 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
     p.add_argument("--verbose", action="store_true", help="accepted for compatibility; no effect")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"], help="compute dtype")
+    p.add_argument("--iters", type=int, default=None, help="RAFT's updates (default 32); raft only")
     args = p.parse_args(argv)
     if args.caffemodel != "random" and not os.path.exists(args.caffemodel):
         raise SystemExit(f"input does not exist: {args.caffemodel}")
     jobs = read_jobs(args.listfile)
 
-    from flownet2_tpu_torch.cli.run_flownet import device_from_args, load_weights, resolve_model_name
+    from flownet2_tpu_torch.cli.run_flownet import device_from_args, load_weights, resolve_model_name, runner_from_args
     from flownet2_tpu_torch.core.flow_io import read_image, write_flo
-    from flownet2_tpu_torch.inference import FlowRunner
 
     model = resolve_model_name(args.deployproto)
     device = device_from_args(args)
-    runner = FlowRunner(model, load_weights(args.caffemodel, model), device=device, dtype=args.dtype)
+    runner = runner_from_args(args, model, load_weights(args.caffemodel, model), device)
     for i, (img0, img1, out) in enumerate(jobs):
         write_flo(out, runner(read_image(img0), read_image(img1)))
         print(f"[{i + 1}/{len(jobs)}] {out}")

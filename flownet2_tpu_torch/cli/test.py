@@ -6,17 +6,19 @@ Flag-compatible with flownet2_tpu/cli/test.py:
 
     python -m flownet2_tpu_torch.cli.test --weights W --model M --data-root DIR
         [--dataset flyingchairs] [--iterations 0] [--batch 1]
-        [--dtype float32|bfloat16] [--warp exact|fast] [--gpu N | --device cpu]
+        [--dtype float32|bfloat16] [--warp exact|fast] [--iters N] [--gpu N | --device cpu]
 
 - ``--weights``: a flat ``.npz`` (a ``cli.train`` snapshot's or the JAX
   package's), a ``.caffemodel`` / ``.caffemodel.h5``, or ``random`` (seed 0);
 - the batches come in file order, one epoch; each is run through
-  ``FlowRunner`` (the /64 adapt and the resize back) and scored against its
+  ``FlowRunner`` (each model's input rule: the FlowNet models' /64 adapt
+  and resize back, RAFT's /8 padding and crop) and scored against its
   ground truth with ``ops/losses.epe`` (NaN pixels excluded). A dataset in
   the transport domain (int16 flow) is decoded first, so it scores as its
   float form does;
 - ``--warp`` is accepted so existing command lines run; both values take
   the exact warp kernel (the Hopper warp has no window budget to screen);
+- ``--iters``: RAFT's updates (default 32); other models refuse it;
 - ``--gpu N`` runs on ``cuda:N``; ``--device`` names a device instead
   (``cpu`` for tests). Without a card and without ``--device`` the CLI
   exits with an error: it never falls back to the CPU.
@@ -65,6 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"], help="compute dtype")
     p.add_argument("--warp", default="exact", choices=["exact", "fast"],
                    help="accepted for compatibility: both take the exact warp kernel")
+    p.add_argument("--iters", type=int, default=None, help="RAFT's updates (default 32); raft only")
     p.add_argument("--gpu", type=int, default=0, help="CUDA device index to use")
     p.add_argument("--device", default=None, help="explicit torch device (e.g. 'cpu'); overrides --gpu")
     return p
@@ -76,13 +79,12 @@ def main(argv=None, *, net_hook: Optional[Callable] = None) -> int:
     ``tools/diag/tpu_arith.route_convs``)."""
     args = build_parser().parse_args(argv)
 
-    from flownet2_tpu_torch.cli.run_flownet import device_from_args, load_weights, resolve_model_name
+    from flownet2_tpu_torch.cli.run_flownet import device_from_args, load_weights, resolve_model_name, runner_from_args
     from flownet2_tpu_torch.data import BatchLoader, open_dataset
-    from flownet2_tpu_torch.inference import FlowRunner
 
     model = resolve_model_name(args.model)
     device = device_from_args(args)
-    runner = FlowRunner(model, load_weights(args.weights, model), device=device, dtype=args.dtype)
+    runner = runner_from_args(args, model, load_weights(args.weights, model), device)
     if net_hook is not None:
         net_hook(runner.net)
     dataset = open_dataset(args.dataset, args.data_root)

@@ -98,6 +98,8 @@ def main(argv=None) -> int:
         check_model(args.model)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    if args.model not in NETS:
+        raise SystemExit(f"time_cmd times the FlowNet models {tuple(NETS)}, not {args.model!r}")
     device = torch.device(device_from_args(args))
     dtype = getattr(torch, args.dtype)
     with torch.device("meta"):

@@ -1,8 +1,12 @@
 """End-to-end inference: the ``run-flownet`` contract (flownet2_tpu/inference.py).
 
-Resize the image pair to the /64-adapted resolution (linear, the reference's
-offsets), run the net, resize the flow back to the input resolution and
-rescale u and v by target/adapted per axis (flownet2_tpu/core/adapt.py).
+Each model has its input rule. The FlowNet models: resize the image pair to
+the /64-adapted resolution (linear, the reference's offsets), run the net,
+resize the flow back to the input resolution and rescale u and v by
+target/adapted per axis (flownet2_tpu/core/adapt.py). RAFT, as its published
+Sintel evaluation: pad the pair to a multiple of 8 with replicated edges
+(split evenly, the extra row or column below or right), run the net, crop
+the padding off the flow; no rescale.
 """
 
 from __future__ import annotations
@@ -12,12 +16,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from flownet2_tpu_torch.checkpoint import init_params, load_into
 from flownet2_tpu_torch.core.adapt import adapt_shape
 from flownet2_tpu_torch.data.pipeline import pack_into, pack_layout, unpack_views
-from flownet2_tpu_torch.models import NETS
+from flownet2_tpu_torch.models import MODELS
 from flownet2_tpu_torch.models.common import to_nchw, to_nhwc
 from flownet2_tpu_torch.models.flownet2 import (
     DIV_FLOW,
@@ -66,13 +71,20 @@ def _make_forward(model: str) -> Callable:
 
 
 # model name -> seed -> random weights in the JAX package's flat layout
-MODEL_INITS = {name: partial(init_params, name) for name in NETS}
+MODEL_INITS = {name: partial(init_params, name) for name in MODELS}
 MODEL_NAMES = tuple(MODEL_INITS)
 
 
 def check_model(model: str) -> None:
     if model not in MODEL_INITS:
         raise ValueError(f"unknown model {model!r}; choose from {MODEL_NAMES}")
+
+
+def pad_to_8(h: int, w: int) -> tuple[int, int, int, int]:
+    """RAFT's "sintel" padding of an (h, w) frame to multiples of 8:
+    (top, bottom, left, right), the odd row or column below or right."""
+    ph, pw = ((h // 8 + 1) * 8 - h) % 8, ((w // 8 + 1) * 8 - w) % 8
+    return ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
 
 
 class FlowRunner:
@@ -85,7 +97,9 @@ class FlowRunner:
     output stay float32 either way. ``fusion_head``: run the fusion net's
     decoder head as one fused call (the K4 kernel on the card), the
     counterpart of the JAX package's ``FLOWNET2_TPU_FUSION_HEAD=1``;
-    ``flownet2`` only, default off.
+    ``flownet2`` only, default off. ``iters``: RAFT's updates a forward
+    (default 32, the published Sintel evaluation's); ``raft`` only. RAFT in
+    bfloat16 keeps its volume, the lookup and the coordinates in float32.
 
     ``batch`` runs in four ``torch.profiler.record_function`` ranges, one
     after another: ``fn2.runner.prepare``, ``fn2.runner.upload``,
@@ -102,20 +116,31 @@ class FlowRunner:
 
     u8_uploads = 0
 
-    def __init__(self, model: str, params: dict, *, device, dtype=None, fusion_head: bool = False):
+    def __init__(self, model: str, params: dict, *, device, dtype=None, fusion_head: bool = False,
+                 iters: int | None = None):
         check_model(model)
         if fusion_head and model != "flownet2":
             raise ValueError(f"fusion_head applies to flownet2 (the model that runs the fusion net), not {model!r}")
+        if iters is not None and model != "raft":
+            raise ValueError(f"iters applies to raft (the model that refines in updates), not {model!r}")
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.model = model
         self.device = torch.device(device)
         self.dtype = dtype or torch.float32
+        options = {"fusion_head": True} if fusion_head else {}
+        if iters is not None:
+            options["iters"] = iters
         with torch.device("meta"):
-            net = NETS[model](fusion_head=True) if fusion_head else NETS[model]()
+            net = MODELS[model](**options)
         self.net = load_into(net, params).to(device=self.device, dtype=self.dtype).eval()
-        self._forward = _make_forward(model)
+        # a net's input rule: RAFT's says it pads to /8; the FlowNet models' /64 adapt is the default
+        if getattr(net, "pads_to_8", False):
+            self._run = self._run_padded
+        else:
+            self._forward = _make_forward(model)
+            self._run = self._run_adapted
         self._staging = (None, None)  # pinned uint8 host buffer, event of its last copy
 
     @torch.inference_mode()
@@ -124,19 +149,32 @@ class FlowRunner:
         with record_function("fn2.runner.forward"):
             if img0.shape != img1.shape:
                 raise ValueError(f"image shapes differ: {tuple(img0.shape)} vs {tuple(img1.shape)}")
-            h, w = img0.shape[1], img0.shape[2]
-            geom = adapt_shape(h, w)
-            ah, aw = geom.adapted_height, geom.adapted_width
-            # adapt the input resolution (the deploy nets' leading Resample layers)
-            x0 = resample(to_nchw(img0.float()), ah, aw).to(self.dtype)
-            x1 = resample(to_nchw(img1.float()), ah, aw).to(self.dtype)
-            flow = self._forward(self.net, x0, x1)
-            # back to the input size, u and v rescaled per axis; dispnetc's one
-            # disparity channel broadcasts to (d * scale_w, d * scale_h), as the
-            # JAX runner's output does
-            flow = resample(flow.float(), h, w, antialias=False)
-            scale = torch.tensor([geom.scale_width, geom.scale_height], device=flow.device)
-            return to_nhwc(flow * scale.view(1, 2, 1, 1))
+            return self._run(img0, img1)
+
+    def _run_adapted(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+        """The FlowNet models' rule: the /64 adapt, the net, the resize back and rescale."""
+        h, w = img0.shape[1], img0.shape[2]
+        geom = adapt_shape(h, w)
+        ah, aw = geom.adapted_height, geom.adapted_width
+        # adapt the input resolution (the deploy nets' leading Resample layers)
+        x0 = resample(to_nchw(img0.float()), ah, aw).to(self.dtype)
+        x1 = resample(to_nchw(img1.float()), ah, aw).to(self.dtype)
+        flow = self._forward(self.net, x0, x1)
+        # back to the input size, u and v rescaled per axis; dispnetc's one
+        # disparity channel broadcasts to (d * scale_w, d * scale_h), as the
+        # JAX runner's output does
+        flow = resample(flow.float(), h, w, antialias=False)
+        scale = torch.tensor([geom.scale_width, geom.scale_height], device=flow.device)
+        return to_nhwc(flow * scale.view(1, 2, 1, 1))
+
+    def _run_padded(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+        """RAFT's rule: replicate-pad to /8, the net, crop the padding off."""
+        h, w = img0.shape[1], img0.shape[2]
+        top, bottom, left, right = pad_to_8(h, w)
+        x0, x1 = (F.pad(to_nchw(x.float()), (left, right, top, bottom), mode="replicate").to(self.dtype)
+                  for x in (img0, img1))
+        flow = self.net(x0, x1)
+        return to_nhwc(flow[:, :, top:top + h, left:left + w])
 
     def __call__(self, img0: np.ndarray, img1: np.ndarray) -> np.ndarray:
         """img0/img1: (H, W, 3) uint8/float RGB -> (H, W, 2) float32 flow."""

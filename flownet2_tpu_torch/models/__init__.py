@@ -1,10 +1,11 @@
-"""The FlowNet model family as ``nn.Module``s (NCHW inside).
+"""The FlowNet model family, and RAFT, as ``nn.Module``s (NCHW inside).
 
-Each net's ``*_apply`` function takes and returns NHWC, like the JAX
+Each FlowNet net's ``*_apply`` function takes and returns NHWC, like the JAX
 package's. Layer names follow the JAX parameter names, so the JAX package's
 weights load through ``flownet2_tpu_torch.checkpoint``, and so do the
 reference's Caffe weights through ``import_caffe`` (``export_caffe`` writes
-them back).
+them back). RAFT (``models/raft.py``) has no JAX or Caffe counterpart; its
+layer names are the published PyTorch code's.
 """
 
 from flownet2_tpu_torch.models.dispnet import DispNetC, dispnet_c_apply
@@ -27,6 +28,7 @@ from flownet2_tpu_torch.models.flownet_s import FlowNetS, flownet_s_apply
 from flownet2_tpu_torch.models.flownet_sd import FlowNetSD, flownet_sd_apply
 from flownet2_tpu_torch.models.fusion import FlowNetFusion, fusion_apply
 from flownet2_tpu_torch.models.import_caffe import import_caffemodel, parse_caffemodel, parse_caffemodel_h5
+from flownet2_tpu_torch.models.raft import RAFT
 
 # model name (as the CLI takes it) -> net; FlowNet2-CS and -CSS carry the
 # whole FlowNet2 weight set, as in the JAX package
@@ -39,8 +41,11 @@ NETS = {
     "flownet2": FlowNet2,
     "dispnetc": DispNetC,
 }
+# every model the port runs: the FlowNet family (the JAX package's too) and RAFT
+MODELS = {**NETS, "raft": RAFT}
 
 __all__ = [
+    "MODELS",
     "NETS",
     "DIV_FLOW",
     "DispNetC",
@@ -49,6 +54,7 @@ __all__ = [
     "FlowNetFusion",
     "FlowNetS",
     "FlowNetSD",
+    "RAFT",
     "dispnet_c_apply",
     "export_caffemodel",
     "export_caffemodel_h5",

@@ -78,9 +78,21 @@ def _to_caffe_blob(name: str, p: dict, bgr_slots: dict) -> tuple[np.ndarray, str
     return blob, ltype
 
 
+# RAFT's top-level modules: it has no Caffe form (the reference's Caffe is FlowNet's)
+_RAFT_MODULES = ("fnet", "cnet", "update_block")
+
+
+def refuse_raft(params: dict) -> None:
+    """Raise ``ValueError`` on RAFT's weights (flat or nested): there is no Caffe RAFT."""
+    if any(str(k).split("/")[0] in _RAFT_MODULES for k in params):
+        raise ValueError("there is no Caffe RAFT: RAFT's weights stay in the port's .npz layout "
+                         "(checkpoint.save_params)")
+
+
 def _layer_fields(params: dict, bgr_slots: dict) -> list:
     """The pieces of one NetParameter ``layer`` field (100) per {w, b}
     entry, in order, for the caller to join."""
+    refuse_raft(params)
     pieces = []
     for name, p in params.items():
         blob, ltype = _to_caffe_blob(name, p, bgr_slots)
@@ -129,6 +141,7 @@ def export_caffemodel_h5(
     pure-Python HDF5 subset writer."""
     from flownet2_tpu_torch.core.hdf5_lite import write_hdf5
 
+    refuse_raft(params)
     bgr_slots = bgr_slots or {}
     data: dict = {}
     for name, p in params.items():

@@ -359,8 +359,11 @@ def import_caffemodel(path: str, model: str) -> dict:
     layers land under ``flownetc/`` there). Both binaryproto ``.caffemodel``
     and HDF5 ``.caffemodel.h5`` (net.cpp:805-885) are read. The result is
     checked against the port's net (:func:`check_params_fit`) and refused
-    with the keys that do not fit.
+    with the keys that do not fit. ``raft`` is refused: there is no Caffe RAFT.
     """
+    if model == "raft":
+        raise ValueError("there is no Caffe RAFT: load RAFT's weights from an .npz in the port's layout, "
+                         "or use 'random'")
     params = _import_layers(path, model)
     check_params_fit(params, model)
     return params

@@ -91,10 +91,10 @@ def summarize(model: str, height: int, width: int, batch: int, *, device, out=sy
 
 def main(argv=None) -> int:
     from flownet2_tpu_torch.cli.run_flownet import device_from_args
-    from flownet2_tpu_torch.inference import MODEL_INITS
+    from flownet2_tpu_torch.models import NETS
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", choices=sorted(MODEL_INITS))
+    p.add_argument("model", choices=sorted(NETS))
     p.add_argument("--height", type=int, default=320)
     p.add_argument("--width", type=int, default=448)
     p.add_argument("--batch", type=int, default=1)

@@ -754,6 +754,41 @@ def cudnn_deterministic():
     torch.backends.cudnn.deterministic = flag
 
 
+# max |flow difference| in px, card against the CPU reference, by updates: float32
+# on cuDNN's algorithms rounds otherwise than on the CPU, and the random-weight
+# recurrence amplifies it (at this size the reference in float64 parts from
+# float32 by 3.8e-5 px after one update and 2.8e-4 after four; an H100 read
+# 6.6e-5 and 6.2e-4): about 30 times what the card reads
+RAFT_CARD_TOLERANCE = {1: 2e-3, 4: 2e-2}
+
+
+@pytest.mark.parametrize("iters", sorted(RAFT_CARD_TOLERANCE))
+def test_raft_on_the_card_equals_the_reference(cuda, cudnn_deterministic, iters):
+    """``FlowRunner("raft")`` on the card (TF32 off) against the plain
+    reference of ``tests/raft_reference.py`` on the CPU: two 124x190 pairs,
+    padded on both axes, through ``batch``, and one through ``__call__``."""
+    import raft_reference
+
+    from flownet2_tpu_torch.checkpoint import expected_params
+
+    weights = raft_reference.seeded_weights(expected_params("raft"), 3)
+    rng = np.random.default_rng(0)
+    img0, img1 = (rng.integers(0, 256, (2, 124, 190, 3), dtype=np.uint8) for _ in range(2))
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        runner = FlowRunner("raft", weights, device=cuda, iters=iters)
+        got, one = runner.batch(img0, img1), runner(img0[1], img1[1])
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = flags
+    with torch.no_grad():
+        want = raft_reference.raft(weights, img0, img1, iters).numpy()
+    err = max(np.abs(got - want).max(), np.abs(one - want[1]).max())
+    print(f"raft on the card, {iters} updates: max |difference| {err:.3g} px")
+    assert got.shape == want.shape == (2, 124, 190, 2) and err <= RAFT_CARD_TOLERANCE[iters]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_runner_stages_uint8_frames_and_matches_float_frames(cuda, cudnn_deterministic, dtype):
     """On the card, uint8 frames cross as uint8 through the runner's pinned
